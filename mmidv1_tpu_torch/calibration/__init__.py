@@ -1,1 +1,2 @@
-"""Parameter space, objective, PSO, ensemble adaptive Metropolis, calibrator."""
+"""Parameter space, objective, PSO, ensemble adaptive Metropolis, NUTS,
+MALA, calibrator."""

@@ -133,7 +133,7 @@ def build_objective(
             # i == 0 is y0 itself: row 0 incidence is 0 by anchoring
             # (reference :192-208 anchors row 0 to the initial state).
             inc = (torch.zeros_like(cur) if i == 0
-                   else torch.clamp_min(cur, 0.0)) + eps
+                   else sepaihrd.max0(cur)) + eps
             j = i - runup_offset
             if not 0 <= j < num_obs:
                 # out of the observation window: the masked Kahan update

@@ -180,8 +180,11 @@ class ParameterSpace:
         return torch.stack(torch.broadcast_tensors(*cols), dim=-1)
 
     def clamp(self, theta: torch.Tensor) -> torch.Tensor:
-        """OPTIMIZATION_CLAMP constraint mode."""
-        return torch.clamp(theta, self.lower, self.upper)
+        """OPTIMIZATION_CLAMP constraint mode, written as ``jnp.clip`` is
+        (``minimum(maximum(theta, lower), upper)``) so that a coordinate
+        exactly on a bound gets half the gradient, as under ``jax.grad``;
+        ``torch.clamp`` would pass all of it."""
+        return torch.minimum(torch.maximum(theta, self.lower), self.upper)
 
     def reflect(self, theta: torch.Tensor) -> torch.Tensor:
         """MCMC_REFLECT constraint mode: reflect off bounds (reference

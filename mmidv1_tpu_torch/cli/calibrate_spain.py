@@ -6,6 +6,8 @@ covariance conditioning -> Phase 2 ensemble adaptive-Metropolis (REFLECT) ->
 float64 re-selection of the best candidate -> optionally write re-loadable
 calibrated parameters, posterior samples and run metadata. Every objective
 evaluation goes through the fused CUDA kernel (``ops/sepaihrd_fused.py``).
+``--algorithm nuts`` runs NUTS instead, on the CLAMP objective, with every
+value and gradient from the K2/K3 kernels (``ops/sepaihrd_adjoint.py``).
 
 Usage:
     python -m mmidv1_tpu_torch.cli.calibrate_spain [--algorithm psomcmc]
@@ -14,8 +16,9 @@ Usage:
         [--out DIR] [--full]
 
 ``--full`` uses the production settings files (pso_settings.txt /
-mcmc_settings.txt). ``--device cpu`` runs the plain PyTorch versions on the
-host (slow; for checks at small sizes).
+mcmc_settings.txt / nuts_settings.txt); otherwise NUTS runs
+max(mcmc_iters // 10, 50) iterations. ``--device cpu`` runs the plain
+PyTorch versions on the host (slow; for checks at small sizes).
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ import torch
 
 from ..calibration.calibrator import calibrate
 from ..calibration.mh import MHConfig
+from ..calibration.nuts import NUTSConfig
 from ..calibration.param_space import CLAMP, REFLECT
 from ..calibration.pso import PSOConfig
 from ..data import read_sepaihrd_parameters, save_calibration_results
-from ..ops import build_objective_fused
+from ..ops import (build_objective_fused, build_objective_fused_grad,
+                   fused_adjoint, fused_forward_ckpt)
 from ..utils.device import resolve_device
 from .common import load_spain_pipeline
 
@@ -51,10 +56,13 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
                     init: Optional[str] = None, out: Optional[str] = None,
                     full: bool = False, device="cuda",
                     root: Optional[str] = None, num_days: Optional[int] = None,
+                    nuts_config: Optional[NUTSConfig] = None,
                     log=print) -> dict:
     """Run the calibration and return its summary (``best_logl``,
     ``best_logl_float64``, ``initial_logl``, phase timings,
-    ``chain_steps_per_s``...). Files are written only when ``out`` is given."""
+    ``chain_steps_per_s`` for AM-MH, ``grad_evals_per_s`` and the K2/K3
+    launches for NUTS...). ``nuts_config`` overrides the NUTS settings.
+    Files are written only when ``out`` is given."""
     dev = resolve_device(device)
     dtype = torch.float64 if x64 else torch.float32
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -87,22 +95,45 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
     if full:
         pso_cfg = PSOConfig.from_settings(pipe.settings["pso"])
         mh_cfg = MHConfig.from_settings(pipe.settings["mcmc"])
+        nuts_cfg = NUTSConfig.from_settings(pipe.settings["nuts"])
     else:
         pso_cfg = PSOConfig(swarm_size=pso_particles, iterations=pso_iters)
         mh_cfg = MHConfig(iterations=mcmc_iters, burn_in=burn_in,
                           adaptation_period=50, thinning=thinning)
+        nuts_cfg = NUTSConfig(iterations=max(mcmc_iters // 10, 50))
+    nuts_cfg = nuts_config or nuts_cfg
+    nuts = algorithm.lower() == "nuts"
+    vag_clamp = None
+    if nuts:
+        vag_clamp = build_objective_fused_grad(
+            space, params, data, ts, substeps=substeps, tableau=tableau,
+            constraint_mode=CLAMP, dtype=dtype, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
+    k2_k3 = (fused_forward_ckpt.launches, fused_adjoint.launches)
     t0 = time.perf_counter()
     result = calibrate(ll_clamp, ll_reflect, space, theta0, generator=gen,
                        algorithm=algorithm, phase1_config=pso_cfg,
-                       mh_config=mh_cfg, n_chains=chains)
+                       mh_config=mh_cfg, nuts_config=nuts_cfg,
+                       n_chains=chains, value_and_grad_batch_clamp=vag_clamp)
     best_ll = float(result.best_logl)
     wall = time.perf_counter() - t0
-    mh_steps = -(-mh_cfg.iterations // mh_cfg.thinning) * mh_cfg.thinning
-    chain_steps_per_s = (chains * mh_steps / result.phase2_seconds
-                         if result.phase2_seconds > 0 else None)
+    k2_k3 = (fused_forward_ckpt.launches - k2_k3[0],
+             fused_adjoint.launches - k2_k3[1])
+    mh_steps = chain_steps_per_s = grad_evals_per_s = None
+    if nuts:
+        grad_evals_per_s = chains * vag_clamp.calls / result.phase2_seconds
+        nres = result.nuts_result
+        log(f"NUTS: {vag_clamp.calls} value_and_grad calls of {chains} chains "
+            f"(K2 {k2_k3[0]}, K3 {k2_k3[1]} launches), "
+            f"{grad_evals_per_s:.4e} grad-evals/s; mean accept "
+            f"{float(nres.mean_accept.mean()):.3f}, mean depth "
+            f"{float(nres.mean_depth.mean()):.2f}")
+    else:
+        mh_steps = -(-mh_cfg.iterations // mh_cfg.thinning) * mh_cfg.thinning
+        chain_steps_per_s = (chains * mh_steps / result.phase2_seconds
+                             if result.phase2_seconds > 0 else None)
     log(f"calibration done in {wall:.1f}s: best logL {best_ll:.6e} "
         f"({'BEATS' if best_ll > REFERENCE_BEST_LL else 'below'} reference "
         f"{REFERENCE_BEST_LL:.8e}); phase 1 {result.phase1_seconds:.2f}s, "
@@ -117,9 +148,11 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
     else:
         pipe64 = load_spain_pipeline(root, dtype=torch.float64, device=dev,
                                      num_days=num_days)
-        cands = [result.best_theta[None, :], result.phase1_best[None, :]]
+        cands = [result.best_theta[None, :]]
         if result.mh_result is not None:
             cands.append(result.mh_result.final_state.best_x)
+        if result.phase1_best is not None:
+            cands.append(result.phase1_best[None, :])
         cands = torch.unique(torch.cat(cands).to(torch.float64), dim=0)
         lls64 = objective(REFLECT, pipe64.space, pipe64.params,
                           torch.float64)(cands)
@@ -136,14 +169,15 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
         "initial_logl": ll0,
         "reference_best_logl": REFERENCE_BEST_LL,
         "beats_reference": best_ll64 > REFERENCE_BEST_LL,
-        "phase1_logl": float(result.phase1_logl),
+        "phase1_logl": (None if result.phase1_logl is None
+                        else float(result.phase1_logl)),
         "algorithm": algorithm,
         "tableau": tableau,
         "substeps": substeps,
         "chains": chains,
         "pso": {k: int(v) if isinstance(v, int) else v   # bools and enums
                 for k, v in dataclasses.asdict(pso_cfg).items()},
-        "mcmc_iterations": mh_cfg.iterations,
+        "mcmc_iterations": nuts_cfg.iterations if nuts else mh_cfg.iterations,
         "mcmc_steps_run": mh_steps,
         "dtype": str(dtype).replace("torch.", ""),
         "seed": seed,
@@ -151,10 +185,21 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
         "phase1_seconds": result.phase1_seconds,
         "phase2_seconds": result.phase2_seconds,
         "chain_steps_per_s": chain_steps_per_s,
+        "grad_evals_per_s": grad_evals_per_s,
         "device": f"{dev.type}/{kind}",
         "n_params": space.dim,
         "observation_days": data.n_data_points,
     }
+    if nuts:
+        nres = result.nuts_result
+        summary.update(
+            nuts=dataclasses.asdict(nuts_cfg), value_and_grad_calls=vag_clamp.calls,
+            k2_launches=k2_k3[0], k3_launches=k2_k3[1],
+            mean_accept=float(nres.mean_accept.mean()),
+            mean_depth=float(nres.mean_depth.mean()),
+            step_size_median=float(nres.step_sizes.median()),
+            samples_shape=list(nres.samples.shape),
+            samples_finite=bool(torch.isfinite(nres.samples).all()))
     if out:
         os.makedirs(out, exist_ok=True)
         best_params = pipe64.space.apply(pipe64.params,

@@ -41,6 +41,18 @@ def _contact_matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.sum(M * v.unsqueeze(-2), dim=-1)
 
 
+def max0(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` with ``jnp.maximum``'s gradient: at a tie (x == 0) half
+    the cotangent goes to x. ``torch.clamp_min`` would pass all of it; the
+    forward values are the same, NaN included."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)`` (``minimum(maximum(x, 0), 1)``), ties split."""
+    return torch.minimum(max0(x), x.new_ones(()))
+
+
 def inv_population(params: SEPAIHRDParams) -> torch.Tensor:
     """Safe 1/N per age group (reference ``AgeSEPAIHRDModel.cpp:46-49``)."""
     N = params.N
@@ -67,7 +79,7 @@ def rhs_frozen(t, y: torch.Tensor, params: SEPAIHRDParams,
     pr = params
     inf_pressure = (P_ + A_ + _col(pr.theta) * I_) * pr.h_infec * inv_population(pr)
     lam = _contact_matvec(pr.contact_matrix(), inf_pressure)
-    lam = torch.clamp_min(_col(beta_eff) * pr.a * lam, 0.0)
+    lam = max0(_col(beta_eff) * pr.a * lam)
 
     flow_SE = lam * S_
     flow_EP = _col(pr.sigma) * E_
@@ -156,15 +168,15 @@ def infer_initial_state(
     one = torch.ones_like(N)
     zero = torch.zeros((), dtype=N.dtype, device=N.device)
 
-    D0 = torch.clamp_min(cumulative_deaths_day0, 0.0)
-    H0 = torch.clamp_min(cumulative_hosp_day0, 0.0)
-    ICU0 = torch.clamp_min(cumulative_icu_day0, 0.0)
+    D0 = max0(cumulative_deaths_day0)
+    H0 = max0(cumulative_hosp_day0)
+    ICU0 = max0(cumulative_icu_day0)
     CumH0 = H0
     CumICU0 = ICU0
 
-    I0 = torch.clamp_min(cumulative_confirmed_day0 - D0, 0.0)
+    I0 = max0(cumulative_confirmed_day0 - D0)
 
-    p_c = torch.clamp(p, 0.0, 1.0)
+    p_c = clip01(p)
     one_minus_p = 1.0 - p_c
 
     P0 = torch.where((gamma_p > 1e-9) & (one_minus_p > 1e-9),
@@ -177,22 +189,22 @@ def infer_initial_state(
     E0 = torch.where(sigma > 1e-9,
                      P0 * gamma_p / torch.where(sigma > 1e-9, sigma, one), P0)
 
-    E0 = torch.clamp_min(E0, 0.0)
-    P0 = torch.clamp_min(P0, 0.0)
-    A0 = torch.clamp_min(A0, 0.0)
+    E0 = max0(E0)
+    P0 = max0(P0)
+    A0 = max0(A0)
     R0 = z
 
     # Sequential population-budget clamping (GetCalibrationData.cpp:168-174)
     D0 = torch.minimum(D0, N)
-    ICU0 = torch.minimum(ICU0, torch.clamp_min(N - D0, 0.0))
-    H0 = torch.minimum(H0, torch.clamp_min(N - D0 - ICU0, 0.0))
-    I0 = torch.minimum(I0, torch.clamp_min(N - D0 - ICU0 - H0, 0.0))
-    R0 = torch.minimum(R0, torch.clamp_min(N - D0 - ICU0 - H0 - I0, 0.0))
+    ICU0 = torch.minimum(ICU0, max0(N - D0))
+    H0 = torch.minimum(H0, max0(N - D0 - ICU0))
+    I0 = torch.minimum(I0, max0(N - D0 - ICU0 - H0))
+    R0 = torch.minimum(R0, max0(N - D0 - ICU0 - H0 - I0))
 
     # Joint rescale of inferred (E,P,A) into the remaining budget (:182-196)
     sum_set = I0 + H0 + ICU0 + R0 + D0
     sum_inferred = E0 + P0 + A0
-    available = torch.clamp_min(N - sum_set, 0.0)
+    available = max0(N - sum_set)
     scale = torch.where(
         sum_inferred > available,
         torch.where(sum_inferred > 1e-9,
@@ -201,7 +213,7 @@ def infer_initial_state(
         one)
     E0, P0, A0 = E0 * scale, P0 * scale, A0 * scale
 
-    S0 = torch.clamp_min(N - (E0 + P0 + A0 + I0 + H0 + ICU0 + R0 + D0), 0.0)
+    S0 = max0(N - (E0 + P0 + A0 + I0 + H0 + ICU0 + R0 + D0))
 
     return torch.stack([S0, E0, P0, A0, I0, H0, ICU0, R0, D0, CumH0, CumICU0])
 
@@ -231,11 +243,13 @@ def multiplier_scaled_state(params: SEPAIHRDParams, base_state: torch.Tensor):
         params.I0_multiplier, params.H0_multiplier, params.ICU0_multiplier,
         params.R0_multiplier, params.D0_multiplier), dim=-1)   # (..., 8)
     base = torch.as_tensor(base_state, dtype=params.dtype, device=params.device)
-    y = base.expand(mults.shape[:-1] + base.shape).clone()
-    y[..., C.E:C.D + 1, :] = y[..., C.E:C.D + 1, :] * mults.unsqueeze(-1)
-    sum_non_S = torch.sum(y[..., C.E:C.D + 1, :], dim=-2)
+    base = base.expand(mults.shape[:-1] + base.shape)
+    # out of place, so that autograd can differentiate through the multipliers
+    scaled = base[..., C.E:C.D + 1, :] * mults.unsqueeze(-1)
+    sum_non_S = torch.sum(scaled, dim=-2)
     infeasible = torch.any(sum_non_S > params.N, dim=-1)
-    y[..., C.S, :] = params.N - sum_non_S
+    S0 = (params.N - sum_non_S).unsqueeze(-2)
+    y = torch.cat([S0, scaled, base[..., C.D + 1:, :]], dim=-2)
     return y, infeasible
 
 

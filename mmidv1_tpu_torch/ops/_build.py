@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>_<hash>.so`` inside the package
-(a directory ``.gitignore`` lists). The hash covers the source and the flags,
-so an edited source is rebuilt at its next use and an unchanged one is not.
+(a directory ``.gitignore`` lists). The hash covers the source, every header
+of ``csrc/`` (``*.cuh``, which the sources include) and the flags, so an
+edited source or header is rebuilt at its next use and an unchanged one is
+not.
 Sources are compiled in parallel, one ``nvcc`` process each. Nothing is
 built when this module is imported: the first kernel launch builds.
 """
@@ -39,8 +41,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -70,13 +70,13 @@ def period_runs_for_grid(ts, beta_end_times, kappa_end_times):
     return tuple(runs)
 
 
-def _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
-                  runup_offset, substeps):
-    tensors = dict(y0=y0, agevec=agevec, scal=scal, beff=beff, obs=obs,
-                   valid=valid)
-    dev, dtype = y0.device, y0.dtype
+def check_tensors(tensors: dict, what: str):
+    """Every tensor of ``tensors`` (name -> tensor) float32 or float64, of
+    one dtype, on one device and contiguous, as the kernels take them."""
+    first = next(iter(tensors.values()))
+    dev, dtype = first.device, first.dtype
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_objective takes float32 or float64, got {dtype}")
+        raise TypeError(f"{what} takes float32 or float64, got {dtype}")
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -85,6 +85,13 @@ def _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
                              f"must be {dtype} on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
+                  runup_offset, substeps):
+    tensors = dict(y0=y0, agevec=agevec, scal=scal, beff=beff, obs=obs,
+                   valid=valid)
+    check_tensors(tensors, "fused_objective")
     B = y0.shape[-1]
     n_runs = len(run_start)
     T_obs = obs.shape[0]
@@ -97,6 +104,13 @@ def _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
                              f"expected {shape}")
     if B < 1 or T_obs < 1:
         raise ValueError("need at least one chain and one observation row")
+    check_schedule(M, run_start, run_count, runup_offset, substeps, T_obs)
+    return B, n_runs, T_obs
+
+
+def check_schedule(M, run_start, run_count, runup_offset, substeps, T_obs):
+    """Validate the host constants the kernels take besides the tensors."""
+    n_runs = len(run_start)
     if np.shape(M) != (N_AGES, N_AGES):
         raise ValueError(f"M has shape {np.shape(M)}, expected (4, 4)")
     if len(run_count) != n_runs or n_runs < 1:
@@ -111,7 +125,6 @@ def _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
                          f"{runup_offset} do not end on observation row {T_obs - 1}")
     if int(substeps) < 1:
         raise ValueError("substeps must be >= 1")
-    return B, n_runs, T_obs
 
 
 def fused_objective(y0: torch.Tensor, agevec: torch.Tensor, scal: torch.Tensor,
@@ -138,14 +151,8 @@ def fused_objective(y0: torch.Tensor, agevec: torch.Tensor, scal: torch.Tensor,
     from . import _build
 
     lib = _build.load("sepaihrd_fused")
-    tab = get_tableau(tableau)
-    S = tab.stages
-    h = 1.0 / substeps
-    a = (ctypes.c_double * (S * S))(*[float(h * x) for x in tab.a.reshape(-1)])
-    b = (ctypes.c_double * S)(*[float(h * x) for x in tab.b])
-    m = (ctypes.c_double * 16)(*[float(x) for x in np.asarray(M).reshape(-1)])
-    rs = (ctypes.c_int * n_runs)(*[int(x) for x in run_start])
-    rc = (ctypes.c_int * n_runs)(*[int(x) for x in run_count])
+    S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
+                                           run_count)
     out = torch.empty(B, dtype=y0.dtype, device=y0.device)
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
@@ -158,7 +165,7 @@ def fused_objective(y0: torch.Tensor, agevec: torch.Tensor, scal: torch.Tensor,
         err = fn(y0.data_ptr(), agevec.data_ptr(), scal.data_ptr(),
                  beff.data_ptr(), obs.data_ptr(), valid.data_ptr(),
                  out.data_ptr(), B, T_obs, int(runup_offset), int(substeps), S,
-                 int(tab.fsal), a, b, m, n_runs, rs, rc, stream)
+                 fsal, a, b, m, n_runs, rs, rc, stream)
     if err != 0:
         lib.sepaihrd_fused_error_string.restype = ctypes.c_char_p
         lib.sepaihrd_fused_error_string.argtypes = [ctypes.c_int]
@@ -171,12 +178,43 @@ def fused_objective(y0: torch.Tensor, agevec: torch.Tensor, scal: torch.Tensor,
 fused_objective.launches = 0
 
 
+def host_consts(tableau: str, substeps: int, M, run_start, run_count):
+    """The kernels' host-side constants as ctypes arrays: ``(stages, fsal,
+    h*a (S*S), h*b (S), M (16), run_start, run_count)``."""
+    tab = get_tableau(tableau)
+    S, n_runs = tab.stages, len(run_start)
+    h = 1.0 / substeps
+    a = (ctypes.c_double * (S * S))(*[float(h * x) for x in tab.a.reshape(-1)])
+    b = (ctypes.c_double * S)(*[float(h * x) for x in tab.b])
+    m = (ctypes.c_double * 16)(*[float(x) for x in np.asarray(M).reshape(-1)])
+    rs = (ctypes.c_int * n_runs)(*[int(x) for x in run_start])
+    rc = (ctypes.c_int * n_runs)(*[int(x) for x in run_count])
+    return S, int(tab.fsal), a, b, m, rs, rc
+
+
 def fused_objective_reference(y0, agevec, scal, beff, obs, valid, M, *,
                               run_start, run_count, runup_offset: int,
                               substeps: int = 4,
                               tableau: str = "dopri5") -> torch.Tensor:
     """The plain PyTorch version of the kernel: same inputs, same function,
     one eager op at a time (chains last, R dropped as in the kernel)."""
+    ll, _ = plain_forward(y0, agevec, scal, beff, obs, valid, M,
+                          run_start=run_start, run_count=run_count,
+                          runup_offset=runup_offset, substeps=substeps,
+                          tableau=tableau)
+    return ll
+
+
+def plain_forward(y0, agevec, scal, beff, obs, valid, M, *, run_start,
+                  run_count, runup_offset: int, substeps: int = 4,
+                  tableau: str = "dopri5", chunk: int = 0,
+                  incidence=sepaihrd.max0):
+    """The forward solve + fold of K1 (and of K2) in eager PyTorch, for any
+    autograd mode. Returns ``(ll (B,), ckpts)``: with ``chunk > 0`` ``ckpts``
+    is the ``(n_chunks, 10, 4, B)`` stack of pre-reset day-start states at
+    every ``t % chunk == 0``, else None. ``incidence(cv)`` is the clamp of
+    a day's raw incidence before the ``+ 1e-10``; its forward value must be
+    ``max(cv, 0)``, and its gradient is the caller's choice."""
     dtype, dev = y0.dtype, y0.device
     tab = get_tableau(tableau)
     Mt = torch.as_tensor(np.asarray(M, dtype=np.float64), dtype=dtype, device=dev)
@@ -188,7 +226,7 @@ def fused_objective_reference(y0, agevec, scal, beff, obs, valid, M, *,
         S_, E_, P_, A_, I_, H_, ICU_ = y[:7].unbind(0)
         ip = (P_ + A_ + theta * I_) * hinfN
         lam = torch.sum(Mt[:, :, None] * ip[None, :, :], dim=1)
-        lam = torch.clamp_min(beta * (a_ * lam), 0.0)
+        lam = sepaihrd.max0(beta * (a_ * lam))
         fSE = lam * S_
         fEP = sigma * E_
         fPo = gp * P_
@@ -218,21 +256,24 @@ def fused_objective_reference(y0, agevec, scal, beff, obs, valid, M, *,
         ll = ll + poisson_row(0, torch.full((3, N_AGES, B), eps, dtype=dtype,
                                             device=dev))
     T_obs = obs.shape[0]
+    ckpts = []
     for r, (start, count) in enumerate(zip(run_start, run_count)):
         beta = beff[r]
         f = lambda t, yy, beta=beta: rhs(yy, beta)
         for t in range(start, start + count):
+            if chunk and t % chunk == 0:
+                ckpts.append(y)
             y = y.clone()
             y[_DAY_ROWS] = 0.0
             y = _advance_interval_fixed(f, 0.0, 1.0, y, substeps, tab)
             j = t + 1 - runup_offset
             if 0 <= j < T_obs:
-                term = poisson_row(j, torch.clamp_min(y[_DAY_ROWS], 0.0) + eps)
+                term = poisson_row(j, incidence(y[_DAY_ROWS]) + eps)
                 contrib = term - comp
                 ll_new = ll + contrib
                 comp = (ll_new - ll) - contrib
                 ll = ll_new
-    return ll
+    return ll, (torch.stack(ckpts) if chunk else None)
 
 
 def op_count(tableau: str, substeps: int, n_intervals: int, n_obs_days: int) -> int:

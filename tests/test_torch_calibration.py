@@ -227,7 +227,7 @@ def test_unported_variants_raise(problem):
         with pytest.raises(NotImplementedError):
             tpso.run_pso(problem["clamp"][1], tspace,
                          tpso.PSOConfig(variant=v), generator=gen)
-    for algo in ("hill", "hillmcmc", "nuts"):
+    for algo in ("hill", "hillmcmc"):
         with pytest.raises(NotImplementedError):
             tcal.calibrate(None, None, tspace, None, generator=gen,
                            algorithm=algo)

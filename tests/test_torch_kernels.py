@@ -1,4 +1,5 @@
-"""The fused-objective CUDA kernel against its plain PyTorch version.
+"""The CUDA kernels K1 (fused objective), K2 (forward with checkpoints) and
+K3 (adjoint) against their plain PyTorch versions.
 
 This file imports nothing of JAX, so the card (which has no JAX) can run it:
 
@@ -12,7 +13,12 @@ the kernel: input validation, dispatch by device, and the op count.
 Tolerances: in float64 the kernel and the plain version differ only by FMA
 contraction and summation order, rtol 1e-10 over a 35-day solve; in float32
 the day terms are also summed in another order, rtol 2e-5 at these small
-sizes (chip_smoke.py uses 2e-4 at full width, where LL ~1.4e6).
+sizes (chip_smoke.py uses 2e-4 at full width, where LL ~1.4e6). K3's
+gradients: in float64 rtol 1e-9 with an absolute floor of 1e-9 x the
+largest entry of the chain (entries that cancel to ~0 keep only absolute
+accuracy); in float32 each chain's gradient within 1e-3 of the plain one in
+relative 2-norm (a reverse sweep over 54 days accumulates f32 rounding in
+another order on each side).
 """
 
 import os
@@ -27,6 +33,7 @@ from mmidv1_tpu_torch.calibration.objective import make_time_grid
 from mmidv1_tpu_torch.calibration.param_space import REFLECT, ParameterSpace
 from mmidv1_tpu_torch.data import CalibrationData
 from mmidv1_tpu_torch.ops import build_objective_fused, sepaihrd_fused as sf
+from mmidv1_tpu_torch.ops import sepaihrd_adjoint as adj
 
 sys.path.insert(0, os.path.dirname(__file__))
 from reference_impl import spain_like_prm  # noqa: E402  (NumPy only)
@@ -145,3 +152,99 @@ def test_op_count_tracks_tableau_work():
     # 4 lanes x 325 intervals x (41 x 25 RHS + 20 x 25 axpys x 4) + folds
     assert n == 4 * (325 * (41 * 25 + 20 * 25 * 4) + 18 * 306)
     assert sf.op_count("cash_karp", 3, 325, 306) < n
+
+
+def _per_chain_close(got, ref, dtype, what):
+    """Gradient tensors (..., B): per chain, f64 rtol 1e-9 with an absolute
+    floor of 1e-9 x max|ref|; f32 relative 2-norm <= 1e-3."""
+    got = got.double().cpu().numpy().reshape(-1, got.shape[-1])
+    ref = ref.double().cpu().numpy().reshape(-1, ref.shape[-1])
+    assert np.isfinite(got).all(), what
+    for b in range(ref.shape[1]):
+        g, r = got[:, b], ref[:, b]
+        if dtype == torch.float64:
+            np.testing.assert_allclose(g, r, rtol=1e-9,
+                                       atol=1e-9 * np.abs(r).max(),
+                                       err_msg=f"{what} chain {b}")
+        else:
+            assert np.linalg.norm(g - r) <= 1e-3 * np.linalg.norm(r), \
+                (what, b, np.linalg.norm(g - r) / np.linalg.norm(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
+                                        (torch.float32, 2e-5)])
+@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
+def test_forward_ckpt_matches_plain_version(cuda, dtype, rtol, tableau):
+    """K2: the log-likelihood (also against K1) and the checkpoints."""
+    for runup in (True, False):
+        ll, theta0 = _objective(cuda, dtype, runup)
+        for B in (1, 5, 37):
+            args, kw, _inf = _args(ll, theta0, B, B)
+            kw = dict(kw, substeps=2, tableau=tableau)
+            before = adj.fused_forward_ckpt.launches
+            k, ck = adj.fused_forward_ckpt(*args, **kw)
+            torch.cuda.synchronize()
+            assert adj.fused_forward_ckpt.launches == before + 1
+            r, rck = adj.fused_forward_ckpt_reference(*args, **kw)
+            assert ck.shape == rck.shape == (adj.num_chunks(
+                sum(kw["run_count"])), 10, 4, B)
+            np.testing.assert_allclose(k.double().cpu().numpy(),
+                                       r.double().cpu().numpy(), rtol=rtol)
+            rck = rck.double().cpu().numpy()
+            np.testing.assert_allclose(ck.double().cpu().numpy(), rck,
+                                       rtol=rtol, atol=rtol * np.abs(rck).max())
+            k1 = sf.fused_objective(*args, **kw)
+            np.testing.assert_allclose(k.double().cpu().numpy(),
+                                       k1.double().cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
+def test_adjoint_matches_plain_version(cuda, dtype, tableau):
+    """K3: all four gradient outputs against autograd through the plain
+    forward, with and without run-up, for a random cotangent."""
+    for runup in (True, False):
+        ll, theta0 = _objective(cuda, dtype, runup)
+        for B in (1, 5, 37):
+            (y0, agevec, scal, beff, obs, valid, M), kw, _inf = \
+                _args(ll, theta0, B, B)
+            kw = dict(kw, substeps=2, tableau=tableau)
+            _k, ck = adj.fused_forward_ckpt(y0, agevec, scal, beff, obs,
+                                            valid, M, **kw)
+            g = torch.as_tensor(np.random.default_rng(B).uniform(0.5, 1.5, B),
+                                dtype=dtype, device=cuda)
+            before = adj.fused_adjoint.launches
+            got = adj.fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M,
+                                    **kw)
+            torch.cuda.synchronize()
+            assert adj.fused_adjoint.launches == before + 1
+            ref = adj.fused_adjoint_reference(agevec, scal, beff, obs, valid,
+                                              ck, g, M, **kw)
+            for name, a, b in zip(("dy0", "dagevec", "dscal", "dbeff"),
+                                  got, ref):
+                assert a.shape == b.shape
+                _per_chain_close(a, b, dtype, f"{tableau} {name} B={B}")
+            assert (got[0][[7, 8, 9, 10]] == 0).all()   # R; reset rows
+
+
+@pytest.mark.cuda
+def test_adjoint_sums_beta_per_run(cuda):
+    """K3's per-run d(beta), flushed at run boundaries, equals the sum over
+    the run's days of the per-day d(beta) (one schedule run per day)."""
+    ll, theta0 = _objective(cuda, torch.float64)
+    (y0, agevec, scal, beff, obs, valid, M), kw, _inf = _args(ll, theta0, 6, 3)
+    kw = dict(kw, substeps=2, tableau="dopri5")
+    _k, ck = adj.fused_forward_ckpt(y0, agevec, scal, beff, obs, valid, M, **kw)
+    g = torch.ones(6, dtype=torch.float64, device=cuda)
+    dbeff = adj.fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)[3]
+    days = [r for r, c in enumerate(kw["run_count"]) for _ in range(c)]
+    n = len(days)
+    kw_day = dict(kw, run_start=tuple(range(n)), run_count=(1,) * n)
+    dday = adj.fused_adjoint(agevec, scal, beff[days].contiguous(), obs, valid,
+                             ck, g, M, **kw_day)[3]
+    summed = torch.zeros_like(dbeff).index_add_(0, torch.as_tensor(
+        days, device=cuda), dday)
+    np.testing.assert_allclose(dbeff.cpu().numpy(), summed.cpu().numpy(),
+                               rtol=1e-12)
