@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's Spain-2020 calibration paths on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # everything; the last line says ok
+    python3 chip_smoke.py --k3     # build, then phases 7 and 8 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -27,20 +28,30 @@ Phases (any failure exits non-zero before the final line):
      plain forward, whose saved tensors limit it to B = 512): all four
      gradient outputs, f64 rtol 1e-9 with an absolute floor of 1e-9 x the
      chain's largest entry, f32 per-chain relative 2-norm <= 1e-3; NaN
-     chains come out NaN from both and finfo.min from value_and_grad;
+     chains come out NaN from both and finfo.min from value_and_grad. K3
+     has two regimes (chunk-parallel for few chains, one sweep for many):
+     the one its rule picks and each one forced are all held;
   8. time K2 and K3 (CUDA events) at B = 8192 and at the NUTS path's
-     B = 64, f32 and f64, beside their op-count bounds; at B = 64, on
+     B = 64, f32 and f64, beside their op-count bounds, K3 in the regime
+     its rule picks and in each regime forced; at B = 64, on
      CLAMP-prepared inputs as NUTS gives them, also hold both against their
-     plain versions with the tolerances of phases 6 and 7;
+     plain versions with the tolerances of phases 6 and 7, and read from
+     torch.profiler K3's time by stage and how long a value_and_grad keeps
+     the card busy; then time both regimes over B = 64 ... 2048 in f32 and
+     f64, with 320, 384 and 448 between (the crossover behind the rule);
   9. the gradient anchor in float64: at the committed MAP + 0.05 sigma
      noise, value_and_grad against a central difference of K1 along a
      random sigma-scaled direction (step 1e-4 sigma, rtol 1e-4), and its
      value against K1's (rtol 1e-12);
  10. the NUTS path, ``calibrate_spain`` with ``--algorithm nuts --full``
      (64 chains, nuts_settings.txt: 25 iterations of depth 3), float32,
-     with the K1/K2/K3 launch counts set to 0 just before and read after;
- 11. a short MALA run (64 chains x 20 iterations, float32) through the
-     same K2/K3 engine, its launches counted;
+     with the K1/K2/K3 launch counts set to 0 just before and read after:
+     every K3 call must run in the regime the rule picks at 64 chains and
+     launch that regime's kernels;
+ 11. two short MALA runs through the same K2/K3 engine, float32, launches
+     counted from 0: 64 chains x 20 iterations (K3's regime 1), and 1024
+     chains x 5 iterations, above the crossover, where every K3 call must
+     run in regime 2;
  12. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
@@ -200,12 +211,13 @@ def adjoint_bounds(B, dtype_name, kw, n_obs, args, ckpt):
     """K2's and K3's bounds: max(bytes / HBM rate, ops / peak), each input
     read once and each output written once (K3's scratch is not counted),
     ops from ``op_count_adjoint``: K3's ``bound_ms`` from the function's
-    least arithmetic ("bwd"), ``design_bound_ms`` from K3 as built."""
+    least arithmetic ("bwd"), ``design_bound_ms`` from K3 as built, by
+    regime."""
     from mmidv1_tpu_torch.ops.sepaihrd_adjoint import op_count_adjoint
 
     elem = 8 if dtype_name == "float64" else 4
     ops = op_count_adjoint(kw["tableau"], kw["substeps"], sum(kw["run_count"]),
-                           n_obs)
+                           n_obs, n_runs=len(kw["run_count"]))
     n_in = sum(a.numel() for a in args[:6])
     n_ck = ckpt.numel()
     y0, agevec, scal, beff, obs, valid = args[:6]
@@ -220,8 +232,9 @@ def adjoint_bounds(B, dtype_name, kw, n_obs, args, ckpt):
                     bound_by="bytes" if t_b > t_o else "operations")
 
     bwd = bound(n_bwd * elem, B * ops["bwd"])
-    design = bound(n_bwd * elem, B * ops["bwd_design"])
-    bwd.update(design_flops=design["flops"], design_bound_ms=design["bound_ms"])
+    bwd["design_bound_ms"] = {
+        r: bound(n_bwd * elem, B * flops)["bound_ms"]
+        for r, flops in ops["bwd_design"].items()}
     return {"fwd": bound((n_in + B + n_ck) * elem, B * ops["fwd"]), "bwd": bwd}
 
 
@@ -296,8 +309,18 @@ def check_k3(case, got, ref, dtype_name, tol, bad=()):
     return dict(case=case, err=err, tol=tol, max_abs_err=max_abs)
 
 
+def k3_forced(regime, agevec, scal, beff, obs, valid, ck, g, M, kw):
+    """K3 in ``regime`` (1 or 2) whatever its rule would pick: ``(outputs,
+    kernels launched)``, through the launcher's private argument."""
+    from mmidv1_tpu_torch.ops import sepaihrd_adjoint as adj
+    out, _regime, n_kernels = adj._launch_adjoint(
+        agevec, scal, beff, obs, valid, ck, g, M, regime=regime, **kw)
+    return out, n_kernels
+
+
 def compare_k3(case, B, dtype_name, tableau, substeps, tol, cache, seed):
-    """K3 vs its plain version, NaN chains included; the masked engine."""
+    """K3 vs its plain version, NaN chains included, in the regime its rule
+    picks and in each regime forced; the masked engine."""
     import torch
     from mmidv1_tpu_torch.calibration.param_space import REFLECT
     from mmidv1_tpu_torch.ops import (fused_adjoint, fused_adjoint_reference,
@@ -310,10 +333,20 @@ def compare_k3(case, B, dtype_name, tableau, substeps, tol, cache, seed):
     ll, ck = fused_forward_ckpt(*args, **kw)
     g = torch.ones_like(ll)
     got = fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)
+    picked = fused_adjoint.regime
     torch.cuda.synchronize()
     ref = fused_adjoint_reference(agevec, scal, beff, obs, valid, ck, g, M, **kw)
     torch.cuda.synchronize()
-    out = check_k3(case, got, ref, dtype_name, tol, bad)
+    out = check_k3(f"{case} regime {picked} (picked)", got, ref, dtype_name,
+                   tol, bad)
+    out["regime"] = picked
+    out["forced"] = {}
+    for regime in (1, 2):
+        forced, _n = k3_forced(regime, agevec, scal, beff, obs, valid, ck, g,
+                               M, kw)
+        torch.cuda.synchronize()
+        out["forced"][regime] = check_k3(f"{case} regime {regime} (forced)",
+                                         forced, ref, dtype_name, tol, bad)
     good = [c for c in range(B) if c not in bad]
     lv, gv = vg(thetas)
     lv, gv = lv.cpu(), gv.cpu()
@@ -327,10 +360,11 @@ def compare_k3(case, B, dtype_name, tableau, substeps, tol, cache, seed):
 
 def time_adjoint(B, dtype_name, cache, plain):
     """K2 and K3 times (CUDA events) and bounds at dopri5@4 on CLAMP inputs,
-    as the NUTS path prepares them; with ``plain`` also their plain
-    versions' (one run each), and the kernels' outputs held against them
-    (LL and checkpoints at rtol 1e-10 f64 / 2e-4 f32, gradients at 1e-9 /
-    1e-3 as in ``check_k3``)."""
+    as the NUTS path prepares them, K3 in the regime its rule picks and in
+    each regime forced (regime 1 up to B = 2048: it keeps every stage
+    input); with ``plain`` also their plain versions' (one run each), and
+    the kernels' outputs held against them (LL and checkpoints at rtol
+    1e-10 f64 / 2e-4 f32, gradients at 1e-9 / 1e-3 as in ``check_k3``)."""
     import torch
     from mmidv1_tpu_torch.calibration.param_space import CLAMP
     from mmidv1_tpu_torch.ops import (fused_adjoint, fused_adjoint_reference,
@@ -342,33 +376,196 @@ def time_adjoint(B, dtype_name, cache, plain):
     y0, agevec, scal, beff, obs, valid, M = args
     ll, ck = fused_forward_ckpt(*args, **kw)
     g = torch.ones_like(ll)
-    bwd = lambda: fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)
+    k3_args = (agevec, scal, beff, obs, valid, ck, g, M)
+    bwd = lambda: fused_adjoint(*k3_args, **kw)
+    calls, kernels = fused_adjoint.launches, fused_adjoint.kernel_launches
     grads = bwd()
     reps = 10 if B <= 1024 else 3
-    out = dict(B=B, dtype=dtype_name,
+    out = dict(B=B, dtype=dtype_name, k3_regime=fused_adjoint.regime,
+               k3_kernels_per_call=(fused_adjoint.kernel_launches - kernels)
+               // (fused_adjoint.launches - calls),
                k2_ms=cuda_ms(lambda: fused_forward_ckpt(*args, **kw), reps),
                k3_ms=cuda_ms(bwd, reps),
                vag_ms=cuda_ms(lambda: vg(thetas), reps))
+    forced = {}
+    for regime in (1, 2) if B <= 2048 else (2,):
+        run = lambda regime=regime: k3_forced(regime, *k3_args, kw)
+        res, n_kernels = run()
+        forced[regime] = dict(grads=res, kernels_per_call=n_kernels,
+                              ms=cuda_ms(run, reps),
+                              stage_ms=device_profile(run)[0])
     bounds = adjoint_bounds(B, dtype_name, kw, obs.shape[0], args, ck)
     out["k2_bound"], out["k3_bound"] = bounds["fwd"], bounds["bwd"]
+    design = bounds["bwd"]["design_bound_ms"]
     print(f"[time] B={B} {dtype_name} dopri5@4: K2 {out['k2_ms']:.3f} ms "
           f"(bound {bounds['fwd']['bound_ms']:.4f}, {bounds['fwd']['bound_by']}), "
-          f"K3 {out['k3_ms']:.3f} ms (bound {bounds['bwd']['bound_ms']:.4f}, "
-          f"{bounds['bwd']['bound_by']}; as built "
-          f"{bounds['bwd']['design_bound_ms']:.4f}), value_and_grad "
+          f"K3 {out['k3_ms']:.3f} ms in regime {out['k3_regime']} "
+          f"({out['k3_kernels_per_call']} kernels a call; bound "
+          f"{bounds['bwd']['bound_ms']:.4f}, {bounds['bwd']['bound_by']}; as "
+          f"built {design[out['k3_regime']]:.4f}), value_and_grad "
           f"{out['vag_ms']:.3f} ms", flush=True)
+    for regime, f in forced.items():
+        stages = ", ".join(f"{k} {v:.3f}" for k, v in f["stage_ms"].items())
+        print(f"[time] B={B} {dtype_name}: K3 forced into regime {regime} "
+              f"{f['ms']:.3f} ms ({f['kernels_per_call']} kernels a call; as "
+              f"built {design[regime]:.4f}); stages by the profiler, ms a "
+              f"call: {stages}", flush=True)
     if plain:
+        # how much of a value_and_grad the card works: the rest it waits
+        # for the host (eager prep, its backward, launches)
+        out["vag_device_busy_ms"] = device_profile(lambda: vg(thetas))[1]
+        print(f"[time] B={B} {dtype_name}: value_and_grad keeps the card "
+              f"busy {out['vag_device_busy_ms']:.3f} ms of {out['vag_ms']:.3f} "
+              f"ms a call (idle share "
+              f"{1 - out['vag_device_busy_ms'] / out['vag_ms']:.2f})",
+              flush=True)
         ref2, out["k2_plain_ms"] = cuda_once(
             lambda: fused_forward_ckpt_reference(*args, **kw))
         ref3, out["k3_plain_ms"] = cuda_once(
-            lambda: fused_adjoint_reference(agevec, scal, beff, obs, valid, ck,
-                                            g, M, **kw))
+            lambda: fused_adjoint_reference(*k3_args, **kw))
         case = f"{dtype_name} dopri5@4 B={B} CLAMP (NUTS shape)"
         tol2, tol3 = (1e-10, 1e-9) if dtype_name == "float64" else (2e-4, 1e-3)
         out["k2_check"] = check_k2(case, (ll, ck), ref2, tol2)
-        out["k3_check"] = check_k3(case, grads, ref3, dtype_name, tol3)
+        out["k3_check"] = check_k3(f"{case} regime {out['k3_regime']} (picked)",
+                                   grads, ref3, dtype_name, tol3)
+        for regime, f in forced.items():
+            f["check"] = check_k3(f"{case} regime {regime} (forced)",
+                                  f["grads"], ref3, dtype_name, tol3)
         print(f"[time] B={B} {dtype_name}: plain K2 {out['k2_plain_ms']:.1f} ms, "
               f"K3 {out['k3_plain_ms']:.1f} ms", flush=True)
+    out["k3_forced"] = {r: {k: v for k, v in f.items() if k != "grads"}
+                        for r, f in forced.items()}
+    return out
+
+
+def device_profile(run, calls=5):
+    """Device time of ``run`` from ``torch.profiler`` (CUPTI) over ``calls``
+    calls, ms a call: ``(by K3 stage, all kernels and copies together)``;
+    fails where the profiler reports no device time."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    stages, busy = {}, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue                       # an op's total repeats its kernels'
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        busy += us / 1e3 / calls
+        m = re.search(r"sepaihrd_adjoint_([a-z]+)_kernel", ev.key)
+        if m:
+            stages[m.group(1)] = stages.get(m.group(1), 0.0) + us / 1e3 / calls
+    if not busy:
+        fail("torch.profiler reported no device time")
+    return stages, busy
+
+
+def regime_crossover(cache, sizes=(64, 128, 256, 320, 384, 448, 512, 1024,
+                                   2048)):
+    """K3 in each regime (CUDA events, 10 launches, in turns) over B in
+    float32 and float64, dopri5@4, CLAMP inputs, and what the rule picks
+    there: the measurement behind ``choose_regime``."""
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import CLAMP
+    from mmidv1_tpu_torch.ops import fused_adjoint, fused_forward_ckpt
+
+    rows = []
+    for dtype_name in ("float32", "float64"):
+        for B in sizes:
+            _vg, args, kw, _th = spain_case(cache, dtype_name, CLAMP, "dopri5",
+                                            4, B, B + 7)
+            y0, agevec, scal, beff, obs, valid, M = args
+            ll, ck = fused_forward_ckpt(*args, **kw)
+            k3_args = (agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M)
+            fused_adjoint(*k3_args, **kw)
+            row = dict(B=B, dtype=dtype_name, picked=fused_adjoint.regime,
+                       regime1_ms=0.0, regime2_ms=0.0)
+            for regime in (1, 2, 2, 1):        # the mean of the two turns
+                row[f"regime{regime}_kernels"] = k3_forced(regime, *k3_args,
+                                                           kw)[1]
+                row[f"regime{regime}_ms"] += cuda_ms(
+                    lambda: k3_forced(regime, *k3_args, kw), reps=10) / 2
+            rows.append(row)
+            print(f"[crossover] B={B} {dtype_name}: regime 1 "
+                  f"{row['regime1_ms']:.3f} ms, regime 2 "
+                  f"{row['regime2_ms']:.3f} ms, the rule picks {row['picked']}",
+                  flush=True)
+    return rows
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0, just before a path is driven."""
+    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_forward_ckpt,
+                                      fused_objective)
+    fused_objective.launches = 0
+    fused_forward_ckpt.launches = 0
+    fused_adjoint.launches = 0
+    fused_adjoint.kernel_launches = 0
+    fused_adjoint.regime_calls = {1: 0, 2: 0}
+
+
+def read_counts(path, B, crossover):
+    """The launch counts of the path just driven with ``B`` float32 chains.
+    Fails unless every K3 call ran in the one regime that the rule picks at
+    ``B`` and launched that regime's kernels (both from the crossover row of
+    ``B``, whose forced calls do not count here)."""
+    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_forward_ckpt,
+                                      fused_objective)
+    row = next(r for r in crossover if r["B"] == B and r["dtype"] == "float32")
+    regime = row["picked"]
+    counts = dict(k1=fused_objective.launches, k2=fused_forward_ckpt.launches,
+                  k3=fused_adjoint.launches,
+                  k3_kernels=fused_adjoint.kernel_launches,
+                  k3_regime_calls=dict(fused_adjoint.regime_calls),
+                  k3_regime=regime,
+                  k3_kernels_per_call=row[f"regime{regime}_kernels"])
+    if counts["k3"] < 1 or counts["k3_regime_calls"] != {
+            regime: counts["k3"], 3 - regime: 0} or \
+            counts["k3_kernels"] != counts["k3"] * counts["k3_kernels_per_call"]:
+        fail(f"{path}: K3 calls by regime and kernels {counts}, expected all "
+             f"in regime {regime} at {counts['k3_kernels_per_call']} kernels "
+             f"a call")
+    print(f"[{path}] K3: {counts['k3']} calls, all in regime {regime}, "
+          f"{counts['k3_kernels']} kernels = {counts['k3_kernels_per_call']} a "
+          f"call; K2 {counts['k2']} launches, K1 {counts['k1']}", flush=True)
+    return counts
+
+
+def mala_path(path, vg, pipe, n_chains, iterations, crossover):
+    """A short MALA run through the K2/K3 engine ``vg``, launches counted
+    from 0: ``iterations`` + 1 calls of each, finite samples."""
+    import torch
+    from mmidv1_tpu_torch.calibration.mala import MALAConfig, run_mala
+    zero_counts()
+    calls = vg.calls
+    t0 = time.perf_counter()
+    res = run_mala(None, pipe.space, pipe.theta0,
+                   MALAConfig(iterations=iterations, burn_in=iterations // 2,
+                              adaptation_period=max(1, iterations // 2),
+                              initial_step_size=0.02),
+                   generator=torch.Generator(device="cuda").manual_seed(0),
+                   n_chains=n_chains, jitter=0.05, value_and_grad_batch=vg)
+    best = float(res.best_logp)
+    seconds = time.perf_counter() - t0
+    out = dict(read_counts(path, n_chains, crossover), best_logp=best,
+               seconds=seconds, acceptance=float(res.acceptance_rate.mean()),
+               grad_evals_per_s=n_chains * (vg.calls - calls) / seconds)
+    if out["k2"] != iterations + 1 or out["k3"] != iterations + 1 \
+            or not abs(best) < float("inf") \
+            or not bool(torch.isfinite(res.samples).all()):
+        fail(f"{path}: {out}")
+    print(f"[{path}] {n_chains} chains x {iterations} iterations: K2/K3 "
+          f"launches {out['k2']}/{out['k3']}, best logL {best:.6e}, acceptance "
+          f"{out['acceptance']:.3f}, {out['grad_evals_per_s']:.4e} "
+          f"grad-evals/s", flush=True)
     return out
 
 
@@ -413,7 +610,52 @@ def gradient_anchor(cache, n_chains=4, h=1e-4, seed=5):
     return out
 
 
+def k3_ptxas(report):
+    """Registers and spill bytes of every K3 kernel, from the build's own
+    ptxas report: ``{stage: {"float32 S=7": {registers, spill_stores,
+    spill_loads, stack}}}``; printed one line a stage and type."""
+    import re
+    out = {}
+    key = None
+    with open(report) as f:
+        for ln in f:
+            m = re.search(r"sepaihrd_adjoint_([a-z]+)_kernelI([fd])(?:Li(\d+)E)?", ln)
+            if "Function properties for" in ln:
+                key = m and (m.group(1), ("float32" if m.group(2) == "f"
+                                          else "float64")
+                             + (f" S={m.group(3)}" if m.group(3) else ""))
+            elif key and "bytes stack frame" in ln:
+                stack, stores, loads = (int(x) for x in re.findall(r"(\d+) bytes", ln))
+                out.setdefault(key[0], {})[key[1]] = dict(
+                    stack=stack, spill_stores=stores, spill_loads=loads)
+            elif key and "registers" in ln:
+                out[key[0]][key[1]]["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+    if not out:
+        fail(f"no K3 kernel in {report}")
+    for stage, builds in out.items():
+        for name, u in sorted(builds.items()):
+            print(f"[ptxas-K3] {stage} {name}: {u.get('registers')} registers, "
+                  f"spill stores {u['spill_stores']} B, loads "
+                  f"{u['spill_loads']} B, stack {u['stack']} B", flush=True)
+    return out
+
+
+def k3_phases(cache):
+    """Phases 7 and 8: ``(K3 comparisons, K2/K3 timings, regime crossover)``."""
+    k3_cases = []
+    for dtype_name, tol in (("float64", 1e-9), ("float32", 1e-3)):
+        for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
+            k3_cases.append(compare_k3(f"{dtype_name} {tableau}@{substeps} B=512",
+                                       512, dtype_name, tableau, substeps, tol,
+                                       cache, seed=30 + len(k3_cases)))
+    timings = [time_adjoint(B, dtype_name, cache, plain=B <= 64)
+               for B in (8192, 64) for dtype_name in ("float32", "float64")]
+    return k3_cases, timings, regime_crossover(cache)
+
+
 def main():
+    k3_only = "--k3" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -455,10 +697,18 @@ def main():
     results["ptxas"] = usage
     for ln in usage:
         print(f"[ptxas] {ln}", flush=True)
+    results["k3_ptxas"] = k3_ptxas(os.path.join(_build.BUILD_DIR,
+                                                "sepaihrd_adjoint.ptxas.txt"))
+
+    cache = {}
+    if k3_only:
+        k3_phases(cache)
+        print("chip_smoke --k3: K3 held and timed; run without arguments for "
+              "the whole check", flush=True)
+        return 0
 
     # 3. kernel vs plain version on the card
     from mmidv1_tpu_torch.ops import fused_objective
-    cache = {}
     cases = []
     for dtype_name, tol in (("float64", 1e-10), ("float32", 2e-4)):
         for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
@@ -514,8 +764,7 @@ def main():
           f"(AM-MH, 1024 chains, float32) on {card}", flush=True)
 
     # 6. K2 vs its plain version
-    from mmidv1_tpu_torch.ops import fused_adjoint, fused_forward_ckpt
-    k2_cases, k3_cases = [], []
+    k2_cases = []
     for dtype_name, tol in (("float64", 1e-10), ("float32", 2e-4)):
         for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
             k2_cases.append(compare_k2(f"{dtype_name} {tableau}@{substeps} B=8192",
@@ -523,34 +772,23 @@ def main():
                                        cache, seed=20 + len(k2_cases)))
     results["k2_compare"] = k2_cases
 
-    # 7. K3 vs its plain version
-    for dtype_name, tol in (("float64", 1e-9), ("float32", 1e-3)):
-        for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
-            k3_cases.append(compare_k3(f"{dtype_name} {tableau}@{substeps} B=512",
-                                       512, dtype_name, tableau, substeps, tol,
-                                       cache, seed=30 + len(k3_cases)))
+    # 7, 8. K3 vs its plain version; K2 / K3 times beside their bounds
+    k3_cases, timings, crossover = k3_phases(cache)
     results["k3_compare"] = k3_cases
-
-    # 8. K2 / K3 times beside their bounds
-    timings = [time_adjoint(B, dtype_name, cache, plain=B <= 64)
-               for B in (8192, 64) for dtype_name in ("float32", "float64")]
     results["adjoint_timings"] = timings
+    results["k3_crossover"] = crossover
 
     # 9. the float64 gradient anchor
     results["gradient_anchor"] = gradient_anchor(cache)
 
     # 10. the NUTS path, counted
-    fused_objective.launches = 0
-    fused_forward_ckpt.launches = 0
-    fused_adjoint.launches = 0
+    zero_counts()
     nuts = run_calibration(
         algorithm="nuts", chains=64, full=True, x64=False, tableau="dopri5",
         substeps=4, seed=0, device="cuda", root=HERE,
         out=os.path.join(HERE, "chiprun_out", "chip_smoke_nuts"),
         log=lambda m: print(f"[nuts] {m}", flush=True))
-    nuts_launches = dict(k1=fused_objective.launches,
-                         k2=fused_forward_ckpt.launches,
-                         k3=fused_adjoint.launches)
+    nuts_launches = read_counts("nuts", 64, crossover)
     results["nuts_path"] = dict(nuts, launches=nuts_launches)
     # 7 (epsilon search) + 1 (init) + 25 x (1 + 2 + 4 leaves + 1): 208
     if min(nuts_launches["k2"], nuts_launches["k3"]) < 200:
@@ -568,43 +806,31 @@ def main():
           f"{nuts['mean_accept']:.3f}, mean depth {nuts['mean_depth']:.2f} "
           f"(64 chains, float32) on {card}", flush=True)
 
-    # 11. MALA through the same engine, counted
-    import torch as _t
-    from mmidv1_tpu_torch.calibration.mala import MALAConfig, run_mala
-    from mmidv1_tpu_torch.calibration.param_space import REFLECT as _R
+    # 11. MALA through the same engine, counted: at the NUTS chain count,
+    # and above the crossover, where K3 runs in regime 2
     from mmidv1_tpu_torch.ops import build_objective_fused_grad
     pipe32 = cache["float32"]
     vg = build_objective_fused_grad(pipe32.space, pipe32.params, pipe32.data,
-                                    pipe32.ts, substeps=4, constraint_mode=_R,
-                                    device="cuda")
-    fused_forward_ckpt.launches = 0
-    fused_adjoint.launches = 0
-    t0 = time.perf_counter()
-    mres = run_mala(None, pipe32.space, pipe32.theta0,
-                    MALAConfig(iterations=20, burn_in=10, adaptation_period=10,
-                               initial_step_size=0.02),
-                    generator=_t.Generator(device="cuda").manual_seed(0),
-                    n_chains=64, jitter=0.05, value_and_grad_batch=vg)
-    mala_best = float(mres.best_logp)
-    mala_s = time.perf_counter() - t0
-    mala = dict(k2=fused_forward_ckpt.launches, k3=fused_adjoint.launches,
-                best_logp=mala_best, seconds=mala_s,
-                acceptance=float(mres.acceptance_rate.mean()),
-                grad_evals_per_s=64 * vg.calls / mala_s)
-    results["mala"] = mala
-    if mala["k2"] != 21 or mala["k3"] != 21 or not abs(mala_best) < float("inf") \
-            or not bool(_t.isfinite(mres.samples).all()):
-        fail(f"MALA run: {mala}")
-    print(f"[mala] 64 chains x 20 iterations: K2/K3 launches {mala['k2']}/"
-          f"{mala['k3']}, best logL {mala_best:.6e}, acceptance "
-          f"{mala['acceptance']:.3f}, {mala['grad_evals_per_s']:.4e} grad-evals/s",
-          flush=True)
+                                    pipe32.ts, substeps=4,
+                                    constraint_mode=REFLECT, device="cuda")
+    mala = mala_path("mala", vg, pipe32, 64, 20, crossover)
+    mala_wide = mala_path("mala-1024", vg, pipe32, 1024, 5, crossover)
+    if mala["k3_regime"] != 1 or mala_wide["k3_regime"] != 2:
+        fail(f"MALA at 64 / 1024 chains ran K3 in regimes {mala['k3_regime']} "
+             f"/ {mala_wide['k3_regime']}, not 1 / 2")
+    results["mala"], results["mala_1024"] = mala, mala_wide
 
     # 12. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
                            and t["dtype"] == d) for d in ("float32", "float64"))
+    # K3's counts and regime are the NUTS run's own; its time and error are
+    # phase 8's at the same shape, which must have run the same regime
+    k3_regime = nuts_launches["k3_regime"]
+    if main32["k3_regime"] != k3_regime:
+        fail(f"K3 was timed in regime {main32['k3_regime']} but the NUTS path "
+             f"ran regime {k3_regime}")
     kernels = [{
         "name": "sepaihrd_fused", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_fused.cu",
@@ -639,8 +865,19 @@ def main():
         "ms": main32["k3_ms"], "plain_ms": main32["k3_plain_ms"],
         "bound_ms": main32["k3_bound"]["bound_ms"],
         "bound_by": main32["k3_bound"]["bound_by"], "library_ms": None,
-        "design_bound_ms": main32["k3_bound"]["design_bound_ms"],
+        "regime": k3_regime,
+        "calls": nuts_launches["k3"],
+        "kernel_launches": nuts_launches["k3_kernels"],
+        "kernels_per_call": nuts_launches["k3_kernels"] // nuts_launches["k3"],
+        "design_bound_ms": main32["k3_bound"]["design_bound_ms"][k3_regime],
         "shape": "B=64 float32 dopri5@4 CLAMP",
+        "paths": {name: {k: c[k] for k in ("k3", "k3_kernels",
+                                           "k3_regime_calls")}
+                  for name, c in (("nuts B=64", nuts_launches),
+                                  ("mala B=64", mala),
+                                  ("mala B=1024", mala_wide))},
+        "by_regime": {f"B={t['B']} {t['dtype']}": t["k3_forced"]
+                      for t in timings},
         "configs": [main64["k3_check"]] + k3_cases}]
     results["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

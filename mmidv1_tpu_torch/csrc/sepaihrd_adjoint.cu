@@ -1,7 +1,7 @@
 // The gradient of the fused SEPAIHRD objective for NVIDIA Hopper (sm_90a):
 // K2, the forward solve + fold with day-start checkpoints, and K3, the
-// reverse chunked discrete adjoint. Together they are one value_and_grad of
-// the log-likelihood with respect to every kernel input.
+// reverse discrete adjoint. Together they are one value_and_grad of the
+// log-likelihood with respect to every kernel input.
 //
 // Replace the Pallas TPU kernels mmidv1_tpu/ops/sepaihrd_adjoint.py
 // `_fwd_call` (body `_make_fwd_kernel`) and `_bwd_call` (body
@@ -9,53 +9,77 @@
 //   K2: K1's forward (sepaihrd_fused.cu) on the R-dropped state, plus the
 //       PRE-reset day-start state at every day t with t % 24 == 0, into
 //       ckpt (n_chunks, 10, 4, B), chains last.
-//   K3: per 24-day chunk, last chunk first:
-//       phase 1 re-integrates the chunk from its checkpoint into a global
-//         scratch of 25 day states (days t >= n_intervals are no-ops);
-//       phase 2 sweeps the chunk's days backward: the fold adjoint
-//         g * (obs / inc - valid) of day t, read from the state at t+1 and
-//         gated by the STRICT mask cv > 0 (as the Pallas adjoint, not the
-//         1/2 that jnp.maximum's gradient gives at cv == 0), joins lambda at
-//         D/CumH/CumICU; lambda is pulled back through the day's substeps
-//         one at a time (substep starts recomputed, each substep transposed
-//         by hand: the stage axpys, the 11 flows, the 4x4 contact matvec);
-//         lambda's D/CumH/CumICU rows are then zeroed (the transpose of the
-//         per-day reset). The max(x, 0) of the force of infection transposes
-//         as jax.vjp of jnp.maximum(x, 0) does: 1 for x > 0, 1/2 for x == 0,
-//         0 for x < 0.
-//       Outputs dLL/dy0 (11, 4, B) (R row 0), dLL/dagevec (8, 4, B),
-//       dLL/dscal (7, B) and dLL/dbeff (n_runs, B), for the cotangent g (B,).
-//       The Kahan compensation transposes as the plain sum (dLL/dterm = 1).
+//   K3: from the checkpoints and the cotangent g (B,), dLL/dy0 (11, 4, B)
+//       (R row 0), dLL/dagevec (8, 4, B), dLL/dscal (7, B) and dLL/dbeff
+//       (n_runs, B). The days are swept backward: the fold adjoint
+//       g * (obs / inc - valid) of day t, read from the state at t+1 and
+//       gated by the STRICT mask cv > 0 (as the Pallas adjoint, not the 1/2
+//       that jnp.maximum's gradient gives at cv == 0), joins lambda at
+//       D/CumH/CumICU; lambda is pulled back through the day's substeps one
+//       at a time, each transposed by hand (the stage axpys, the 11 flows,
+//       the 4x4 contact matvec); lambda's D/CumH/CumICU rows are then zeroed
+//       (the transpose of the per-day reset). The max(x, 0) of the force of
+//       infection transposes as jax.vjp of jnp.maximum(x, 0) does: 1 for
+//       x > 0, 1/2 for x == 0, 0 for x < 0. The Kahan compensation
+//       transposes as the plain sum (dLL/dterm = 1).
 //
-// What bounds them: arithmetic. K2 is K1's arithmetic (~3.9e6 flop per chain
-// at dopri5@4 over 325 days) plus 14 checkpoint stores of 40 values. K3's
-// function needs, per day and lane, a K1 day (phase 1) and the transpose of
-// each substep (about twice the RHS's arithmetic per stage). As built it also
-// recomputes the substep starts (substeps - 1 substeps) and, per substep, the
-// stage inputs: about four K1 solves in all against the function's 2.6.
-// `op_count_adjoint` in ops/sepaihrd_adjoint.py counts both ("bwd" and
-// "bwd_design") from this source. K3's scratch traffic (25 x 10 values a
-// lane, written and read once per chunk) is ~1.8 GB at B = 8192 in f64,
-// ~0.5 ms at 3.35 TB/s, below its arithmetic time.
+// What bounds them: arithmetic in the roofline's terms (K2 ~3.9e6 flop per
+// chain at dopri5@4 over 325 days, K3's function ~1.0e7: one re-integration
+// from the checkpoints plus the transpose of every substep), but at the
+// chain counts the samplers use the time is the latency of the dependency
+// chain, one RK stage after the other, so K3 is built to shorten that chain
+// and to fit its registers. `op_count_adjoint` in ops/sepaihrd_adjoint.py
+// counts the function's least arithmetic and each regime's own.
 //
-// Design against that bound: the thread mapping and helpers of K1
-// (sepaihrd_common.cuh): one thread per (chain, age), shuffles for the
-// contact matvec, its transpose and the sum over ages; no shared memory, no
-// block barrier. The scratch is private to each thread and laid out
-// thread-major ((day * 10 + compartment) * n_threads + tid), so a warp's
-// stores and loads are contiguous. One substep's stage inputs and stage
-// cotangents (2 x stages x 10 values) and the day's substep starts are
-// per-thread arrays the compiler may keep in local memory (ptxas' spill
-// report goes to build/sepaihrd_adjoint.ptxas.txt). Each chain owns its
-// outputs, so no atomics: d(beta) of the current schedule run is summed in a
-// register and flushed, after a lane reduction, when the backward sweep
-// crosses into the previous run.
+// K3's design: stages that each expose the parallelism they have, launched
+// back to back on one stream. Every stage keeps K1's thread mapping, four
+// age lanes per lane group with shuffles for the contact matvec, its
+// transpose and the sum over ages; what a lane group stands for differs.
+//   days     one lane group per (chain, chunk): re-integrates the chunk's 24
+//            days from its checkpoint with K2's own day step (FSAL carried,
+//            so the states are K2's to the bit) and stores the state after
+//            every substep, thread-major ((day * substeps + sub) * 10 + c) *
+//            4B + chain * 4 + age, so a warp's accesses are contiguous. All
+//            chunks of a wave run at once. A substep's start is the end of
+//            the one before (of the day before, reset; of the checkpoint),
+//            so nothing is recomputed to find it.
+//   Regime 2, many chains (the sweep is throughput-bound):
+//   sweep    one lane group per chain, the chunks of a wave last to first:
+//            per substep the stage inputs are recomputed into a private
+//            slot of dynamic shared memory (stages x 7 values a thread),
+//            then the substep is transposed with the stage cotangents in
+//            registers. Only the 7 rows the RHS reads are kept per stage:
+//            rows D/CumH/CumICU of a stage cotangent are b_i * lambda
+//            always. lambda, the parameter cotangents and the open run's
+//            d(beta) pass from one wave's launch to the next through a
+//            small carry buffer; the scratch of a wave is bounded by the
+//            caller (wave_chunks).
+//   Regime 1, few chains (the sweep is latency-bound): the backward sweep is
+//   affine in the lambda that enters a chunk from the later one, and that
+//   lambda has 7 x 4 non-zero entries (the reset zeroes the rest). So the
+//   chunks are swept all at once:
+//   stages   one lane group per (chain, day, substep): the stage inputs and
+//            their contact matvec, written once (stages x 8 values a lane).
+//   chunk    one block per (chain, chunk), 29 lane groups: one particular
+//            sweep (lambda = 0 entering, the fold adjoint as source) and 28
+//            homogeneous ones (a unit lambda each, no source). All read the
+//            same stage rows from shared memory, where the next substep's
+//            are fetched while this one is transposed.
+//            Each leaves its outgoing lambda (28), its parameter cotangents
+//            (8 x 4 by age, 7 by chain) and d(beta) per (chunk, run)
+//            segment: the columns of the chunk's affine map.
+//   compose  one block per chain walks the chunks last to first in float64,
+//            lambda <- A_c lambda + b_c, dq += G_c lambda + h_c, with the
+//            28-term products written out, and writes the four outputs.
+//   The serial chain per call falls from 14 chunks x (24 days of forward +
+//   24 days of recompute and transpose) to 24 days of forward, 24 days of
+//   transpose and 14 small products, at 29 x the transpose arithmetic.
+// No atomics: every output has one owner thread, every sum a fixed order.
 //
-// Numerics: no --use_fast_math, accurate log; nvcc's FMA contraction makes
-// K2/K3 differ from their plain PyTorch versions by rounding only. Phase 1
-// uses K2's own day step (FSAL carried), so the recomputed day states are
-// K2's; the substep-start recompute evaluates the first stage afresh, as the
-// Pallas adjoint does.
+// Numerics: no --use_fast_math, accurate log and division; nvcc's FMA
+// contraction makes K2/K3 differ from their plain PyTorch versions by
+// rounding only. Stage inputs are computed from the substep's start with
+// every first stage evaluated afresh, as the Pallas adjoint does.
 
 #include "sepaihrd_common.cuh"
 
@@ -64,7 +88,13 @@ namespace {
 using namespace sepaihrd;
 
 constexpr int kChunk = 24;       // days per checkpoint (L_CHUNK)
-constexpr int kMaxSubsteps = 16;
+constexpr int kRhsRows = 7;      // S E P A I H ICU: the rows the RHS reads
+constexpr int kStageRows = kRhsRows + 1;         // regime 1 keeps lraw too
+constexpr int kSeam = kRhsRows * kAges;          // non-zero lambda entries
+constexpr int kSweeps = 1 + kSeam;               // particular + homogeneous
+constexpr int kOutRows = kSeam + 8 * kAges + 7;  // lambda, dagevec, dscal
+constexpr int kCarry = kRhsRows + 15 + 1;        // lambda, dq, open d(beta)
+constexpr int kComposeThreads = 96 + kMaxRuns;   // rows, then one per run
 
 // parameter cotangent slots: agevec rows 0..7, then scal rows 0..6
 enum {
@@ -78,42 +108,45 @@ struct Col {
   T m0, m1, m2, m3;
 };
 
-// One RK substep in place, every stage evaluated afresh (no FSAL carry).
-template <typename T, int S>
-__device__ __forceinline__ void one_substep(T (&y)[kCarried], const Lane<T>& q,
-                                            T beta, const Consts<T>& cst) {
+// The stage inputs Y_i = y + sum_{j<i} a_ij k_j of one substep started at y,
+// every stage evaluated afresh; put(i, Y_i) takes each (rows 0..6 matter).
+template <typename T, int S, typename Put>
+__device__ __forceinline__ void stage_inputs(const T (&y)[kCarried],
+                                             const Lane<T>& q, T beta,
+                                             const Consts<T>& cst, Put put) {
   T k[S][kCarried];
   T yi[kCarried];
+  put(0, y);
   rhs(y, k[0], q, beta);
 #pragma unroll
   for (int i = 1; i < S; ++i) {
     stage_input<T, S>(y, k, i, yi, cst);
-    rhs(yi, k[i], q, beta);
-  }
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const T bi = cst.b[i];
-    if (bi != T(0)) {
-#pragma unroll
-      for (int c = 0; c < kCarried; ++c) y[c] = y[c] + bi * k[i][c];
-    }
+    put(i, yi);
+    if (i < S - 1) rhs(yi, k[i], q, beta);
   }
 }
 
-// Transpose of one RHS evaluation at state y: given kap = dL/d(dy), write
-// mu = dL/dy and add the parameter cotangents to dq and dbeta.
+// the contact matvec of a state's infectious pressure, as rhs() computes it
 template <typename T>
-__device__ __forceinline__ void rhs_vjp(const T (&y)[kCarried],
+__device__ __forceinline__ T raw_force(const T* y, const Lane<T>& q) {
+  const T ip = (y[2] + y[3] + q.theta * y[4]) * q.hinfN;
+  return group_matvec(ip, q.m0, q.m1, q.m2, q.m3);
+}
+
+// Transpose of one RHS evaluation at state y (its 7 read rows; lraw =
+// raw_force(y)): given kap = dL/d(dy), write mu = dL/dy (rows 0..6; D, CumH
+// and CumICU are not read, so theirs is 0) and add the parameter cotangents
+// to dq and dbeta.
+template <typename T>
+__device__ __forceinline__ void rhs_vjp(const T (&y)[kRhsRows], T lraw,
                                         const T (&kap)[kCarried],
-                                        T (&mu)[kCarried], T (&dq)[kParams],
+                                        T (&mu)[kRhsRows], T (&dq)[kParams],
                                         T& dbeta, const Lane<T>& q,
                                         const Col<T>& mc, T beta) {
   const T S_ = y[0], E_ = y[1], P_ = y[2], A_ = y[3], I_ = y[4], H_ = y[5],
           ICU_ = y[6];
   // forward pieces, as rhs() computes them
   const T s = y[2] + y[3] + q.theta * y[4];
-  const T ip = (y[2] + y[3] + q.theta * y[4]) * q.hinfN;
-  const T lraw = group_matvec(ip, q.m0, q.m1, q.m2, q.m3);
   const T ax = q.a * lraw;
   const T x = beta * ax;
   const T lam = relu(x);
@@ -167,48 +200,44 @@ __device__ __forceinline__ void rhs_vjp(const T (&y)[kCarried],
   mu[4] = c_fIH * q.h + c_fIR * q.gI + c_fIDc * q.dcomm + c_s * q.theta;
   mu[5] = c_fHICU * q.icu + c_dHrow * q.dH - c5 * q.gH;
   mu[6] = c_dICUrow * q.dICU - c6 * q.gICU;
-  mu[7] = T(0);                             // D, CumH, CumICU: not read
-  mu[8] = T(0);
-  mu[9] = T(0);
 }
 
-// Pull lam back through one substep started at y: lam becomes dL/dy.
-template <typename T, int S>
-__device__ __forceinline__ void substep_vjp(const T (&y)[kCarried],
-                                            T (&lam)[kCarried],
+// Pull lam back through one substep whose stage inputs and their raw force
+// stage(i, Y_i, lraw_i) gives: lam becomes dL/d(substep start). Stage cotangents kappa_i = b_i lam +
+// sum_{j > i} a_ji mu_j, completed from the last stage; their rows 7..9
+// are b_i lam always (mu's are 0), so only rows 0..6 are kept.
+template <typename T, int S, typename Get>
+__device__ __forceinline__ void substep_vjp(Get stage, T (&lam)[kCarried],
                                             T (&dq)[kParams], T& dbeta,
                                             const Lane<T>& q, const Col<T>& mc,
                                             T beta, const Consts<T>& cst) {
-  T Y[S][kCarried];   // stage inputs
-  T K[S][kCarried];   // stage derivatives, then stage cotangents
-#pragma unroll
-  for (int c = 0; c < kCarried; ++c) Y[0][c] = y[c];
-  rhs(Y[0], K[0], q, beta);
-#pragma unroll
-  for (int i = 1; i < S; ++i) {
-    stage_input<T, S>(y, K, i, Y[i], cst);
-    rhs(Y[i], K[i], q, beta);
-  }
-  // kappa_i = b_i lam + sum_{j > i} a_ji mu_j, completed from the last stage
+  T K[S][kRhsRows];
 #pragma unroll
   for (int i = 0; i < S; ++i) {
     const T bi = cst.b[i];
 #pragma unroll
-    for (int c = 0; c < kCarried; ++c) K[i][c] = bi != T(0) ? bi * lam[c] : T(0);
+    for (int c = 0; c < kRhsRows; ++c) K[i][c] = bi != T(0) ? bi * lam[c] : T(0);
   }
-  T mu[kCarried];
 #pragma unroll
   for (int i = S - 1; i >= 0; --i) {
-    rhs_vjp(Y[i], K[i], mu, dq, dbeta, q, mc, beta);
+    T yi[kRhsRows], kap[kCarried], mu[kRhsRows], lraw;
+    stage(i, yi, lraw);
+    const T bi = cst.b[i];
 #pragma unroll
-    for (int c = 0; c < kCarried; ++c) lam[c] += mu[c];
+    for (int c = 0; c < kRhsRows; ++c) kap[c] = K[i][c];
+#pragma unroll
+    for (int c = kRhsRows; c < kCarried; ++c)
+      kap[c] = bi != T(0) ? bi * lam[c] : T(0);
+    rhs_vjp(yi, lraw, kap, mu, dq, dbeta, q, mc, beta);
+#pragma unroll
+    for (int c = 0; c < kRhsRows; ++c) lam[c] += mu[c];
 #pragma unroll
     for (int j = 0; j < S; ++j) {
       if (j < i) {
         const T aij = cst.a[i][j];
         if (aij != T(0)) {
 #pragma unroll
-          for (int c = 0; c < kCarried; ++c) K[j][c] += aij * mu[c];
+          for (int c = 0; c < kRhsRows; ++c) K[j][c] += aij * mu[c];
         }
       }
     }
@@ -275,109 +304,424 @@ sepaihrd_fwd_ckpt_kernel(const T* __restrict__ y0, const T* __restrict__ agevec,
   if (active && age == 0) out[chain] = ll;
 }
 
+// Where the scratch of the days stage keeps the state after substep `sub`
+// of day t (t0 = first day of the wave), compartment 0, for this lane.
+__device__ __forceinline__ size_t end_slot(int t, int t0, int sub, int substeps,
+                                           size_t lanes, size_t lane) {
+  return (static_cast<size_t>(t - t0) * substeps + sub) * kCarried * lanes + lane;
+}
+
+// The rows the RHS reads of the state substep `sub` of day t starts from:
+// the end of the substep before, of the day before, or the checkpoint (the
+// reset touches only rows the RHS does not read).
+template <typename T>
+__device__ __forceinline__ void load_start(T (&y)[kCarried],
+                                           const T* __restrict__ ends,
+                                           const T* __restrict__ ckpt, int t,
+                                           int t0, int sub, int substeps,
+                                           size_t lanes, size_t lane, int age,
+                                           int chain, int B) {
+  const T* src;
+  if (sub > 0) {
+    src = ends + end_slot(t, t0, sub - 1, substeps, lanes, lane);
+  } else if (t % kChunk != 0) {
+    src = ends + end_slot(t - 1, t0, substeps - 1, substeps, lanes, lane);
+  } else {
+    src = ckpt + static_cast<size_t>(t / kChunk) * kCarried * lanes +
+          static_cast<size_t>(age) * B + chain;
+  }
+#pragma unroll
+  for (int c = 0; c < kRhsRows; ++c) y[c] = src[c * lanes];
+  y[7] = T(0);
+  y[8] = T(0);
+  y[9] = T(0);
+}
+
+// The fold adjoint of day t joins lam at D/CumH/CumICU: the day's incidence
+// is the state `end` (compartment 0 of this lane, stride lanes) after it.
+template <typename T>
+__device__ __forceinline__ void fold_adjoint(T (&lam)[kCarried],
+                                             const T* __restrict__ end,
+                                             size_t lanes,
+                                             const T* __restrict__ obs,
+                                             const T* __restrict__ valid, int t,
+                                             int runup_offset, int T_obs,
+                                             int age, T gll) {
+  const int j = t + 1 - runup_offset;
+  if (j < 0 || j >= T_obs) return;
+  const T eps = T(1e-10);
+  const int base = j * 3 * kAges + age;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const T cv = end[(7 + s) * lanes];
+    const T inc = relu(cv) + eps;
+    const T o = __ldg(obs + base + s * kAges);
+    const T v = __ldg(valid + base + s * kAges);
+    const T d = (o * gll) / inc - v * gll;
+    lam[7 + s] += cv > T(0) ? d : T(0);
+  }
+}
+
+// K3 stage "days": the chunks [c_lo, c_lo + n_wave_chunks) re-integrated
+// from their checkpoints, one lane group per (chain, chunk); the state
+// after every substep goes to `ends`. Lane groups past the last mirror it
+// and days past the last interval are computed and dropped, so that every
+// shuffle has a full warp.
 template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
-sepaihrd_adjoint_kernel(const T* __restrict__ agevec, const T* __restrict__ scal,
-                        const T* __restrict__ beff, const T* __restrict__ obs,
-                        const T* __restrict__ valid, const T* __restrict__ ckpt,
-                        const T* __restrict__ g, T* __restrict__ dy0,
-                        T* __restrict__ dagevec, T* __restrict__ dscal,
-                        T* __restrict__ dbeff, T* __restrict__ scratch, int B,
-                        int T_obs, int runup_offset, int substeps, int fsal,
-                        int n_runs, int n_intervals, int n_chunks,
-                        const Consts<T> cst) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t n_threads = static_cast<size_t>(gridDim.x) * blockDim.x;
-  const int age = tid & (kAges - 1);
-  const bool active = (tid >> 2) < B;
-  const int chain = active ? (tid >> 2) : B - 1;
-  const size_t AB = static_cast<size_t>(kAges) * B;
-  const size_t at = static_cast<size_t>(age) * B + chain;
-  const T eps = T(1e-10);
+sepaihrd_adjoint_days_kernel(const T* __restrict__ agevec,
+                             const T* __restrict__ scal,
+                             const T* __restrict__ beff,
+                             const T* __restrict__ ckpt, T* __restrict__ ends,
+                             int B, int substeps, int fsal, int n_runs,
+                             int n_intervals, int c_lo, int n_wave_chunks,
+                             const Consts<T> cst) {
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long groups = static_cast<long long>(B) * n_wave_chunks;
+  const bool active = (gid >> 2) < groups;
+  const long long lg = active ? (gid >> 2) : groups - 1;
+  const int age = static_cast<int>(gid & (kAges - 1));
+  const int chain = static_cast<int>(lg % B);
+  const int ch = c_lo + static_cast<int>(lg / B);
+  const size_t lanes = static_cast<size_t>(kAges) * B;
+  const size_t lane = static_cast<size_t>(chain) * kAges + age;
+  const Lane<T> q = load_lane(agevec, scal, cst, age, chain, B);
+
+  T y[kCarried];
+  const T* src = ckpt + static_cast<size_t>(ch) * kCarried * lanes +
+                 static_cast<size_t>(age) * B + chain;
+#pragma unroll
+  for (int c = 0; c < kCarried; ++c) y[c] = src[c * lanes];
+  for (int k = 0; k < kChunk; ++k) {
+    const int t = ch * kChunk + k;
+    const bool keep = active && t < n_intervals;
+    const int r = run_of(t, n_runs, cst.run_start);
+    T* dst = ends + end_slot(t, c_lo * kChunk, 0, substeps, lanes, lane);
+    advance_day<T, S>(y, q, beff[static_cast<size_t>(r) * B + chain], substeps,
+                      fsal, cst, [&](int sub, const T (&ye)[kCarried]) {
+                        if (!keep) return;
+#pragma unroll
+                        for (int c = 0; c < kCarried; ++c)
+                          dst[(static_cast<size_t>(sub) * kCarried + c) * lanes] = ye[c];
+                      });
+  }
+}
+
+// K3 stage "stages" (regime 1): the stage inputs of every substep and their
+// raw force (row 7: the 29 sweeps need not repeat its shuffles), one lane
+// group per (chain, day, substep), into ybuf at
+// (((t * substeps + sub) * S + i) * 8 + c) * 4B + chain * 4 + age.
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads)
+sepaihrd_adjoint_stages_kernel(const T* __restrict__ agevec,
+                               const T* __restrict__ scal,
+                               const T* __restrict__ beff,
+                               const T* __restrict__ ckpt,
+                               const T* __restrict__ ends, T* __restrict__ ybuf,
+                               int B, int substeps, int n_runs, int n_intervals,
+                               const Consts<T> cst) {
+  const long long gid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long groups = static_cast<long long>(B) * n_intervals * substeps;
+  const bool active = (gid >> 2) < groups;
+  const long long lg = active ? (gid >> 2) : groups - 1;
+  const int age = static_cast<int>(gid & (kAges - 1));
+  const int chain = static_cast<int>(lg % B);
+  const int sub = static_cast<int>((lg / B) % substeps);
+  const int t = static_cast<int>(lg / B / substeps);
+  const size_t lanes = static_cast<size_t>(kAges) * B;
+  const size_t lane = static_cast<size_t>(chain) * kAges + age;
+  const Lane<T> q = load_lane(agevec, scal, cst, age, chain, B);
+  const int r = run_of(t, n_runs, cst.run_start);
+
+  T y[kCarried];
+  load_start(y, ends, ckpt, t, 0, sub, substeps, lanes, lane, age, chain, B);
+  T* dst = ybuf + (static_cast<size_t>(t) * substeps + sub) * S * kStageRows * lanes + lane;
+  stage_inputs<T, S>(y, q, beff[static_cast<size_t>(r) * B + chain], cst,
+                     [&](int i, const T (&yi)[kCarried]) {
+                       T row[kStageRows];
+#pragma unroll
+                       for (int c = 0; c < kRhsRows; ++c) row[c] = yi[c];
+                       row[kRhsRows] = raw_force(row, q);
+                       if (!active) return;
+#pragma unroll
+                       for (int c = 0; c < kStageRows; ++c)
+                         dst[static_cast<size_t>(i * kStageRows + c) * lanes] = row[c];
+                     });
+}
+
+// K3 stage "chunk" (regime 1): block (chain, chunk) runs the particular
+// sweep (lane group 0) and the 28 homogeneous sweeps (lane group 1 + c * 4 +
+// age' starts from lam[c] = 1 on age') over the chunk's days. Output:
+//   tm   ((chain * n_chunks + chunk) * 67 + row) * 29 + sweep, rows
+//        lambda (c * 4 + age), dagevec (28 + p * 4 + age), dscal (60 + p);
+//   segb ((chain * n_seg + chunk + run) * 29 + sweep: d(beta) of the days of
+//        `run` inside `chunk` (chunk + run numbers these segments in order).
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads)
+sepaihrd_adjoint_chunk_kernel(const T* __restrict__ agevec,
+                              const T* __restrict__ scal,
+                              const T* __restrict__ beff,
+                              const T* __restrict__ obs,
+                              const T* __restrict__ valid,
+                              const T* __restrict__ g,
+                              const T* __restrict__ ends,
+                              const T* __restrict__ ybuf, T* __restrict__ tm,
+                              T* __restrict__ segb, int B, int T_obs,
+                              int runup_offset, int substeps, int n_runs,
+                              int n_intervals, int n_chunks,
+                              const Consts<T> cst) {
+  // one substep's stage rows, twice: the next substep's are fetched while
+  // this one is transposed
+  constexpr int kVals = S * kStageRows * kAges;
+  constexpr int kLoads = (kVals + kThreads - 1) / kThreads;
+  __shared__ T ysh[2][kVals];
+  const int chain = blockIdx.x / n_chunks;
+  const int ch = blockIdx.x % n_chunks;
+  const int age = threadIdx.x & (kAges - 1);
+  const bool active = (threadIdx.x >> 2) < kSweeps;
+  const int sweep = active ? (threadIdx.x >> 2) : kSweeps - 1;
+  const size_t lanes = static_cast<size_t>(kAges) * B;
+  const size_t lane = static_cast<size_t>(chain) * kAges + age;
+  const int n_seg = n_chunks + n_runs - 1;
   const Lane<T> q = load_lane(agevec, scal, cst, age, chain, B);
   const Col<T> mc = {cst.M[0][age], cst.M[1][age], cst.M[2][age], cst.M[3][age]};
   const T gll = g[chain];
-  // this thread's day state k, compartment c
-  T* const days = scratch + tid;
-  auto slot = [&](int k, int c) -> T& { return days[(k * kCarried + c) * n_threads]; };
 
   T lam[kCarried];
 #pragma unroll
-  for (int c = 0; c < kCarried; ++c) lam[c] = T(0);
+  for (int c = 0; c < kCarried; ++c)
+    lam[c] = (sweep > 0 && sweep - 1 == c * kAges + age) ? T(1) : T(0);
   T dq[kParams];
 #pragma unroll
   for (int p = 0; p < kParams; ++p) dq[p] = T(0);
-  int rb = n_runs - 1;                      // schedule run of the backward day
-  T beta_b = beff[static_cast<size_t>(rb) * B + chain];
   T dbeta = T(0);
-  T ys[kMaxSubsteps][kCarried];             // the day's substep starts
+  const int t_last = min((ch + 1) * kChunk, n_intervals) - 1;
+  int rb = run_of(t_last, n_runs, cst.run_start);
+  T beta_b = beff[static_cast<size_t>(rb) * B + chain];
+  auto flush = [&]() {
+    const T tot = age_sum(dbeta);
+    if (active && age == 0)
+      segb[(static_cast<size_t>(chain) * n_seg + ch + rb) * kSweeps + sweep] = tot;
+    dbeta = T(0);
+  };
 
+  auto fetch = [&](int t, int sub, T (&v)[kLoads]) {
+    const T* src = ybuf + (static_cast<size_t>(t) * substeps + sub) * kVals * B +
+                   static_cast<size_t>(chain) * kAges;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int idx = threadIdx.x + l * kThreads;
+      if (idx < kVals) v[l] = src[static_cast<size_t>(idx >> 2) * lanes + (idx & (kAges - 1))];
+    }
+  };
+  auto stash = [&](int buf, const T (&v)[kLoads]) {
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int idx = threadIdx.x + l * kThreads;
+      if (idx < kVals) ysh[buf][idx] = v[l];
+    }
+  };
+  T v[kLoads];
+  int buf = 0;
+  fetch(t_last, substeps - 1, v);
+  stash(buf, v);
+  __syncthreads();
+
+  for (int t = t_last; t >= ch * kChunk; --t) {
+    while (t < cst.run_start[rb]) {         // crossed into the previous run
+      flush();
+      --rb;
+      beta_b = beff[static_cast<size_t>(rb) * B + chain];
+    }
+    if (sweep == 0) {
+      fold_adjoint(lam, ends + end_slot(t, 0, substeps - 1, substeps, lanes, lane),
+                   lanes, obs, valid, t, runup_offset, T_obs, age, gll);
+    }
+    for (int sub = substeps - 1; sub >= 0; --sub) {
+      const bool more = sub > 0 || t > ch * kChunk;   // a substep is swept next
+      if (more) fetch(sub > 0 ? t : t - 1, sub > 0 ? sub - 1 : substeps - 1, v);
+      const T* const ys = ysh[buf];
+      substep_vjp<T, S>(
+          [&](int i, T (&yi)[kRhsRows], T& lraw) {
+#pragma unroll
+            for (int c = 0; c < kRhsRows; ++c)
+              yi[c] = ys[(i * kStageRows + c) * kAges + age];
+            lraw = ys[(i * kStageRows + kRhsRows) * kAges + age];
+          },
+          lam, dq, dbeta, q, mc, beta_b, cst);
+      if (more) stash(buf ^ 1, v);
+      __syncthreads();                      // all are done with ysh[buf]
+      buf ^= 1;
+    }
+    // transpose of the reset: the zeroed rows take no cotangent
+    lam[7] = T(0);
+    lam[8] = T(0);
+    lam[9] = T(0);
+  }
+  flush();
+  T dsc[7];
+#pragma unroll
+  for (int p = 0; p < 7; ++p) dsc[p] = age_sum(dq[kTheta + p]);
+  if (!active) return;
+  T* out = tm + (static_cast<size_t>(chain) * n_chunks + ch) * kOutRows * kSweeps + sweep;
+#pragma unroll
+  for (int c = 0; c < kRhsRows; ++c) out[(c * kAges + age) * kSweeps] = lam[c];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) out[(kSeam + p * kAges + age) * kSweeps] = dq[p];
+  if (age == 0) {
+#pragma unroll
+    for (int p = 0; p < 7; ++p) out[(kSeam + 8 * kAges + p) * kSweeps] = dsc[p];
+  }
+}
+
+// K3 stage "compose" (regime 1): one block per chain walks the chunks from
+// the last to the first. Thread o < 67 owns output row o of the chunk maps
+// (lambda rows first), thread 96 + r the d(beta) of run r; each adds its
+// row's particular entry and the 28 products with the entering lambda, in
+// float64 whatever T is.
+template <typename T>
+__global__ void __launch_bounds__(kComposeThreads)
+sepaihrd_adjoint_compose_kernel(const T* __restrict__ tm,
+                                const T* __restrict__ segb, T* __restrict__ dy0,
+                                T* __restrict__ dagevec, T* __restrict__ dscal,
+                                T* __restrict__ dbeff, int B, int n_runs,
+                                int n_chunks, const Consts<T> cst) {
+  __shared__ double lam[kSeam];
+  const int chain = blockIdx.x;
+  const int o = threadIdx.x;
+  const int run = o - 96;
+  const int n_seg = n_chunks + n_runs - 1;
+  if (o < kSeam) lam[o] = 0.0;
+  double acc = 0.0;
   for (int ch = n_chunks - 1; ch >= 0; --ch) {
-    // phase 1: re-integrate the chunk, storing the 25 day-start states
-    T y[kCarried];
-    const T* src = ckpt + static_cast<size_t>(ch) * kCarried * AB + at;
-#pragma unroll
-    for (int c = 0; c < kCarried; ++c) y[c] = src[c * AB];
-    for (int k = 0; k < kChunk; ++k) {
-      const int t = ch * kChunk + k;
-#pragma unroll
-      for (int c = 0; c < kCarried; ++c) slot(k, c) = y[c];
-      if (t < n_intervals) {
-        const int r = run_of(t, n_runs, cst.run_start);
-        advance_day<T, S>(y, q, beff[static_cast<size_t>(r) * B + chain],
-                          substeps, fsal, cst);
-      }
+    __syncthreads();
+    const T* row = nullptr;
+    if (o < kOutRows) {
+      row = tm + ((static_cast<size_t>(chain) * n_chunks + ch) * kOutRows + o) * kSweeps;
+    } else if (run >= 0 && run < n_runs && cst.run_start[run] < (ch + 1) * kChunk &&
+               cst.run_start[run] + cst.run_count[run] > ch * kChunk) {
+      row = segb + (static_cast<size_t>(chain) * n_seg + ch + run) * kSweeps;
     }
-#pragma unroll
-    for (int c = 0; c < kCarried; ++c) slot(kChunk, c) = y[c];
+    double v = 0.0;
+    if (row != nullptr) {
+      v = static_cast<double>(row[0]);
+      for (int j = 0; j < kSeam; ++j) v += static_cast<double>(row[1 + j]) * lam[j];
+    }
+    __syncthreads();
+    if (o < kSeam) lam[o] = v; else acc += v;
+  }
+  const size_t AB = static_cast<size_t>(kAges) * B;
+  if (o < kSeam) {                          // dy0 rows S..ICU
+    dy0[static_cast<size_t>(o >> 2) * AB + static_cast<size_t>(o & 3) * B + chain] = T(lam[o]);
+    // R, D, CumH, CumICU: nothing reads them
+    if (o < 4 * kAges)
+      dy0[static_cast<size_t>(kRhsRows + (o >> 2)) * AB + static_cast<size_t>(o & 3) * B + chain] = T(0);
+  } else if (o < kSeam + 8 * kAges) {
+    const int p = (o - kSeam) >> 2, age = (o - kSeam) & 3;
+    dagevec[static_cast<size_t>(p) * AB + static_cast<size_t>(age) * B + chain] = T(acc);
+  } else if (o < kOutRows) {
+    dscal[static_cast<size_t>(o - kSeam - 8 * kAges) * B + chain] = T(acc);
+  } else if (run >= 0 && run < n_runs) {
+    dbeff[static_cast<size_t>(run) * B + chain] = T(acc);
+  }
+}
 
-    // phase 2: the chunk's days backward
-    for (int k = kChunk - 1; k >= 0; --k) {
-      const int t = ch * kChunk + k;
-      if (t >= n_intervals) continue;
-      while (t < cst.run_start[rb]) {       // crossed into the previous run
-        const T tot = age_sum(dbeta);
-        if (active && age == 0) dbeff[static_cast<size_t>(rb) * B + chain] = tot;
-        dbeta = T(0);
-        --rb;
-        beta_b = beff[static_cast<size_t>(rb) * B + chain];
-      }
-      // fold adjoint of day t: its incidence is the state at t+1
-      const int j = t + 1 - runup_offset;
-      if (j >= 0 && j < T_obs) {
-        const int base = j * 3 * kAges + age;
+// K3 stage "sweep" (regime 2): one lane group per chain sweeps the chunks
+// [c_lo, c_hi) backward from the states `ends` of that wave. `first` marks
+// the launch of the last chunks (lambda starts at 0), `last` the one that
+// reaches chunk 0 and writes the outputs; between launches lambda's rows
+// 0..6, the parameter cotangents and the open run's d(beta) rest in `carry`
+// (slot * 4B + lane). Dynamic shared memory: S * 7 values a thread.
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads)
+sepaihrd_adjoint_sweep_kernel(const T* __restrict__ agevec,
+                              const T* __restrict__ scal,
+                              const T* __restrict__ beff,
+                              const T* __restrict__ obs,
+                              const T* __restrict__ valid,
+                              const T* __restrict__ ckpt,
+                              const T* __restrict__ g, T* __restrict__ dy0,
+                              T* __restrict__ dagevec, T* __restrict__ dscal,
+                              T* __restrict__ dbeff, const T* __restrict__ ends,
+                              T* __restrict__ carry, int B, int T_obs,
+                              int runup_offset, int substeps, int n_runs,
+                              int n_intervals, int c_lo, int c_hi, int first,
+                              int last, const Consts<T> cst) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ysm = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  const int nt = blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int age = tid & (kAges - 1);
+  const bool active = (tid >> 2) < B;
+  const int chain = active ? (tid >> 2) : B - 1;
+  const size_t lanes = static_cast<size_t>(kAges) * B;
+  const size_t lane = static_cast<size_t>(chain) * kAges + age;
+  const size_t AB = lanes;
+  const size_t at = static_cast<size_t>(age) * B + chain;
+  const Lane<T> q = load_lane(agevec, scal, cst, age, chain, B);
+  const Col<T> mc = {cst.M[0][age], cst.M[1][age], cst.M[2][age], cst.M[3][age]};
+  const T gll = g[chain];
+  const int t0 = c_lo * kChunk;
+  const int t_last = min(c_hi * kChunk, n_intervals) - 1;
+
+  T lam[kCarried];
+  T dq[kParams];
+  T dbeta = T(0);
 #pragma unroll
-        for (int s = 0; s < 3; ++s) {
-          const T cv = slot(k + 1, 7 + s);
-          const T inc = relu(cv) + eps;
-          const T o = __ldg(obs + base + s * kAges);
-          const T v = __ldg(valid + base + s * kAges);
-          const T d = (o * gll) / inc - v * gll;
-          lam[7 + s] += cv > T(0) ? d : T(0);
-        }
-      }
-      // the day: reset, then substeps; recompute the substep starts
+  for (int c = 0; c < kCarried; ++c) lam[c] = T(0);
 #pragma unroll
-      for (int c = 0; c < kCarried; ++c) ys[0][c] = c < 7 ? slot(k, c) : T(0);
-      for (int sub = 1; sub < substeps; ++sub) {
-        T yy[kCarried];
+  for (int p = 0; p < kParams; ++p) dq[p] = T(0);
+  // the run of the day swept last: the one after this wave, if any
+  int rb = run_of(first ? t_last : t_last + 1, n_runs, cst.run_start);
+  if (!first) {
 #pragma unroll
-        for (int c = 0; c < kCarried; ++c) yy[c] = ys[sub - 1][c];
-        one_substep<T, S>(yy, q, beta_b, cst);
+    for (int c = 0; c < kRhsRows; ++c) lam[c] = carry[c * lanes + lane];
 #pragma unroll
-        for (int c = 0; c < kCarried; ++c) ys[sub][c] = yy[c];
-      }
-      for (int sub = substeps - 1; sub >= 0; --sub) {
-        T yy[kCarried];
-#pragma unroll
-        for (int c = 0; c < kCarried; ++c) yy[c] = ys[sub][c];
-        substep_vjp<T, S>(yy, lam, dq, dbeta, q, mc, beta_b, cst);
-      }
-      // transpose of the reset: the zeroed rows take no cotangent
-      lam[7] = T(0);
-      lam[8] = T(0);
-      lam[9] = T(0);
+    for (int p = 0; p < kParams; ++p) dq[p] = carry[(kRhsRows + p) * lanes + lane];
+    dbeta = carry[(kRhsRows + kParams) * lanes + lane];
+  }
+  T beta_b = beff[static_cast<size_t>(rb) * B + chain];
+
+  for (int t = t_last; t >= t0; --t) {
+    while (t < cst.run_start[rb]) {         // crossed into the previous run
+      const T tot = age_sum(dbeta);
+      if (active && age == 0) dbeff[static_cast<size_t>(rb) * B + chain] = tot;
+      dbeta = T(0);
+      --rb;
+      beta_b = beff[static_cast<size_t>(rb) * B + chain];
     }
+    fold_adjoint(lam, ends + end_slot(t, t0, substeps - 1, substeps, lanes, lane),
+                 lanes, obs, valid, t, runup_offset, T_obs, age, gll);
+    for (int sub = substeps - 1; sub >= 0; --sub) {
+      T y[kCarried];
+      load_start(y, ends, ckpt, t, t0, sub, substeps, lanes, lane, age, chain, B);
+      stage_inputs<T, S>(y, q, beta_b, cst, [&](int i, const T (&yi)[kCarried]) {
+#pragma unroll
+        for (int c = 0; c < kRhsRows; ++c) ysm[(i * kRhsRows + c) * nt] = yi[c];
+      });
+      substep_vjp<T, S>(
+          [&](int i, T (&yi)[kRhsRows], T& lraw) {
+#pragma unroll
+            for (int c = 0; c < kRhsRows; ++c) yi[c] = ysm[(i * kRhsRows + c) * nt];
+            lraw = raw_force(yi, q);
+          },
+          lam, dq, dbeta, q, mc, beta_b, cst);
+    }
+    // transpose of the reset: the zeroed rows take no cotangent
+    lam[7] = T(0);
+    lam[8] = T(0);
+    lam[9] = T(0);
+  }
+  if (!last) {
+    if (!active) return;
+#pragma unroll
+    for (int c = 0; c < kRhsRows; ++c) carry[c * lanes + lane] = lam[c];
+#pragma unroll
+    for (int p = 0; p < kParams; ++p) carry[(kRhsRows + p) * lanes + lane] = dq[p];
+    carry[(kRhsRows + kParams) * lanes + lane] = dbeta;
+    return;
   }
   {
     const T tot = age_sum(dbeta);
@@ -444,6 +788,59 @@ int launch_fwd(const T* y0, const T* agevec, const T* scal, const T* beff,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3's scratch, in values of T, for one regime: where each stage's buffer
+// starts and how long they are together.
+struct ScratchPlan {
+  long long ends, ybuf, tm, segb, carry, total;
+};
+
+ScratchPlan plan_scratch(int regime, int B, int substeps, int n_stages,
+                         int n_intervals, int n_runs, int n_chunks,
+                         int wave_chunks) {
+  const long long lanes = static_cast<long long>(kAges) * B;
+  ScratchPlan p = {};
+  const int held = regime == 1 ? n_chunks : wave_chunks;
+  long long at = static_cast<long long>(held) * kChunk * substeps * kCarried * lanes;
+  if (regime == 1) {
+    p.ybuf = at;
+    at += static_cast<long long>(n_intervals) * substeps * n_stages * kStageRows * lanes;
+    p.tm = at;
+    at += static_cast<long long>(B) * n_chunks * kOutRows * kSweeps;
+    p.segb = at;
+    at += static_cast<long long>(B) * (n_chunks + n_runs - 1) * kSweeps;
+  } else {
+    p.carry = at;
+    at += kCarry * lanes;
+  }
+  p.total = at;
+  return p;
+}
+
+// blocks of `threads` for `total` threads: small grids take one warp a
+// block, so that a latency-bound stage spreads over the SMs
+inline int block_size(long long total, int sm_count) {
+  return total >= static_cast<long long>(sm_count) * kThreads ? kThreads : 32;
+}
+
+// The sweep's stage inputs take more dynamic shared memory than a kernel
+// gets unasked (50 KB a block in f64 dopri5): ask once per instantiation
+// and device, not at every launch.
+template <typename T, int NS>
+cudaError_t allow_sweep_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      sepaihrd_adjoint_sweep_kernel<T, NS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(static_cast<size_t>(NS) * kRhsRows * kThreads * sizeof(T)));
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
+}
+
 template <typename T>
 int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
                const T* valid, const T* ckpt, const T* g, T* dy0, T* dagevec,
@@ -451,30 +848,95 @@ int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
                int T_obs, int runup_offset, int substeps, int n_stages,
                int fsal, const double* a_host, const double* b_host,
                const double* M_host, int n_runs, const int* run_start,
-               const int* run_count, int n_chunks, void* stream) {
+               const int* run_count, int n_chunks, int regime, int wave_chunks,
+               int sm_count, int* n_launched, void* stream) {
   Consts<T> c;
   int n_intervals = 0;
   if (!check<T>(B, T_obs, runup_offset, substeps, n_runs, run_start, run_count,
                 n_chunks, &n_intervals) ||
-      substeps > kMaxSubsteps ||
+      (regime != 1 && regime != 2) || wave_chunks < 1 || sm_count < 1 ||
       !make_consts(c, n_stages, a_host, b_host, M_host, n_runs, run_start,
                    run_count)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long threads_total = static_cast<long long>(kAges) * B;
-  const int blocks = static_cast<int>((threads_total + kThreads - 1) / kThreads);
-  const long long need =
-      static_cast<long long>(kChunk + 1) * kCarried * blocks * kThreads;
-  if (scratch_len < need) return static_cast<int>(cudaErrorInvalidValue);
+  const ScratchPlan p = plan_scratch(regime, B, substeps, n_stages, n_intervals,
+                                     n_runs, n_chunks, wave_chunks);
+  if (scratch_len < p.total) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MMIDV1_LAUNCH(NS)                                                     \
-  sepaihrd_adjoint_kernel<T, NS><<<blocks, kThreads, 0, s>>>(                 \
-      agevec, scal, beff, obs, valid, ckpt, g, dy0, dagevec, dscal, dbeff,    \
-      scratch, B, T_obs, runup_offset, substeps, fsal, n_runs, n_intervals,   \
-      n_chunks, c)
-  SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+  T* const ends = scratch + p.ends;
+  int launched = 0;
+  auto grid = [](long long total, int block) {
+    return static_cast<unsigned>((total + block - 1) / block);
+  };
+  auto days = [&](int c_lo, int n_wave) -> int {
+    const long long total = static_cast<long long>(kAges) * B * n_wave;
+    const int block = block_size(total, sm_count);
+#define MMIDV1_LAUNCH(NS)                                                    \
+  sepaihrd_adjoint_days_kernel<T, NS><<<grid(total, block), block, 0, s>>>(  \
+      agevec, scal, beff, ckpt, ends, B, substeps, fsal, n_runs, n_intervals, \
+      c_lo, n_wave, c)
+    SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
 #undef MMIDV1_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+    ++launched;
+    return static_cast<int>(cudaGetLastError());
+  };
+  cudaError_t err = cudaSuccess;
+  if (regime == 1) {
+    if (int rc = days(0, n_chunks)) return rc;
+    {
+      const long long total =
+          static_cast<long long>(kAges) * B * n_intervals * substeps;
+      const int block = block_size(total, sm_count);
+#define MMIDV1_LAUNCH(NS)                                                      \
+  sepaihrd_adjoint_stages_kernel<T, NS><<<grid(total, block), block, 0, s>>>(  \
+      agevec, scal, beff, ckpt, ends, scratch + p.ybuf, B, substeps, n_runs,   \
+      n_intervals, c)
+      SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+#undef MMIDV1_LAUNCH
+      ++launched;
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    {
+      const unsigned blocks = static_cast<unsigned>(B) * n_chunks;
+#define MMIDV1_LAUNCH(NS)                                                     \
+  sepaihrd_adjoint_chunk_kernel<T, NS><<<blocks, kThreads, 0, s>>>(           \
+      agevec, scal, beff, obs, valid, g, ends, scratch + p.ybuf,              \
+      scratch + p.tm, scratch + p.segb, B, T_obs, runup_offset, substeps,     \
+      n_runs, n_intervals, n_chunks, c)
+      SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+#undef MMIDV1_LAUNCH
+      ++launched;
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    sepaihrd_adjoint_compose_kernel<T><<<B, kComposeThreads, 0, s>>>(
+        scratch + p.tm, scratch + p.segb, dy0, dagevec, dscal, dbeff, B, n_runs,
+        n_chunks, c);
+    ++launched;
+    err = cudaGetLastError();
+  } else {
+    const long long total = static_cast<long long>(kAges) * B;
+    const unsigned blocks = grid(total, kThreads);
+    const size_t smem = static_cast<size_t>(n_stages) * kRhsRows * kThreads * sizeof(T);
+    for (int c_hi = n_chunks; c_hi > 0 && err == cudaSuccess; c_hi -= wave_chunks) {
+      const int c_lo = c_hi > wave_chunks ? c_hi - wave_chunks : 0;
+      if (int rc = days(c_lo, c_hi - c_lo)) return rc;
+#define MMIDV1_LAUNCH(NS)                                                     \
+  {                                                                           \
+    err = allow_sweep_smem<T, NS>();                                          \
+    if (err != cudaSuccess) return static_cast<int>(err);                     \
+    sepaihrd_adjoint_sweep_kernel<T, NS><<<blocks, kThreads, smem, s>>>(      \
+        agevec, scal, beff, obs, valid, ckpt, g, dy0, dagevec, dscal, dbeff,  \
+        ends, scratch + p.carry, B, T_obs, runup_offset, substeps, n_runs,    \
+        n_intervals, c_lo, c_hi, c_hi == n_chunks, c_lo == 0, c);             \
+  }
+      SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+#undef MMIDV1_LAUNCH
+      ++launched;
+      err = cudaGetLastError();
+    }
+  }
+  if (n_launched != nullptr) *n_launched = launched;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -511,6 +973,10 @@ int sepaihrd_fwd_ckpt_f64(const double* y0, const double* agevec,
                             run_count, n_chunks, stream);
 }
 
+// K3. regime 1: days, stages, chunk, compose over all chunks at once;
+// regime 2: days + sweep per wave of `wave_chunks` chunks, last wave first.
+// `scratch` holds at least sepaihrd_adjoint_scratch_len(...) values;
+// *n_launched gets the number of kernels launched.
 int sepaihrd_adjoint_f32(const float* agevec, const float* scal,
                          const float* beff, const float* obs,
                          const float* valid, const float* ckpt, const float* g,
@@ -520,12 +986,15 @@ int sepaihrd_adjoint_f32(const float* agevec, const float* scal,
                          int n_stages, int fsal, const double* a_host,
                          const double* b_host, const double* M_host,
                          int n_runs, const int* run_start,
-                         const int* run_count, int n_chunks, void* stream) {
+                         const int* run_count, int n_chunks, int regime,
+                         int wave_chunks, int sm_count, int* n_launched,
+                         void* stream) {
   return launch_bwd<float>(agevec, scal, beff, obs, valid, ckpt, g, dy0,
                            dagevec, dscal, dbeff, scratch, scratch_len, B,
                            T_obs, runup_offset, substeps, n_stages, fsal,
                            a_host, b_host, M_host, n_runs, run_start,
-                           run_count, n_chunks, stream);
+                           run_count, n_chunks, regime, wave_chunks, sm_count,
+                           n_launched, stream);
 }
 
 int sepaihrd_adjoint_f64(const double* agevec, const double* scal,
@@ -538,12 +1007,22 @@ int sepaihrd_adjoint_f64(const double* agevec, const double* scal,
                          int fsal, const double* a_host, const double* b_host,
                          const double* M_host, int n_runs,
                          const int* run_start, const int* run_count,
-                         int n_chunks, void* stream) {
+                         int n_chunks, int regime, int wave_chunks,
+                         int sm_count, int* n_launched, void* stream) {
   return launch_bwd<double>(agevec, scal, beff, obs, valid, ckpt, g, dy0,
                             dagevec, dscal, dbeff, scratch, scratch_len, B,
                             T_obs, runup_offset, substeps, n_stages, fsal,
                             a_host, b_host, M_host, n_runs, run_start,
-                            run_count, n_chunks, stream);
+                            run_count, n_chunks, regime, wave_chunks, sm_count,
+                            n_launched, stream);
+}
+
+long long sepaihrd_adjoint_scratch_len(int regime, int B, int substeps,
+                                       int n_stages, int n_intervals,
+                                       int n_runs, int wave_chunks) {
+  return plan_scratch(regime, B, substeps, n_stages, n_intervals, n_runs,
+                      (n_intervals + kChunk - 1) / kChunk, wave_chunks)
+      .total;
 }
 
 const char* sepaihrd_adjoint_error_string(int code) {

@@ -184,10 +184,12 @@ __device__ __forceinline__ void stage_input(const T (&y)[kCarried],
 // One daily interval in place: D/CumH/CumICU reset to 0 (the day-end value
 // is then the day's incidence), then `substeps` RK steps of h = 1/substeps
 // with beta frozen; FSAL tableaus carry the last stage into the next substep.
-template <typename T, int S>
+// `after_substep(sub, y)` sees the state after each substep.
+template <typename T, int S, typename Hook>
 __device__ __forceinline__ void advance_day(T (&y)[kCarried], const Lane<T>& q,
                                             T beta, int substeps, int fsal,
-                                            const Consts<T>& cst) {
+                                            const Consts<T>& cst,
+                                            Hook after_substep) {
   T k[S][kCarried];
   T yi[kCarried];
   y[7] = T(0);
@@ -216,7 +218,16 @@ __device__ __forceinline__ void advance_day(T (&y)[kCarried], const Lane<T>& q,
         for (int c = 0; c < kCarried; ++c) y[c] = y[c] + bi * k[i][c];
       }
     }
+    after_substep(sub, y);
   }
+}
+
+template <typename T, int S>
+__device__ __forceinline__ void advance_day(T (&y)[kCarried], const Lane<T>& q,
+                                            T beta, int substeps, int fsal,
+                                            const Consts<T>& cst) {
+  advance_day<T, S>(y, q, beta, substeps, fsal, cst,
+                    [](int, const T (&)[kCarried]) {});
 }
 
 // Launch a kernel templated on the stage count for the tableaus the port

@@ -11,7 +11,11 @@ called through ctypes:
   every ``L_CHUNK`` days, ``ckpt (n_chunks, 10, 4, B)`` (R dropped);
 - :func:`fused_adjoint` (K3): from the checkpoints and the cotangent ``g
   (B,)``, ``dLL/dy0 (11, 4, B)``, ``dLL/dagevec (8, 4, B)``, ``dLL/dscal (7,
-  B)`` and ``dLL/dbeff (n_runs, B)``.
+  B)`` and ``dLL/dbeff (n_runs, B)``. K3 is several kernels launched back
+  to back, in one of two regimes that :func:`choose_regime` picks from the
+  chain count and the card: all chunks swept at once and their affine maps
+  composed (few chains; :func:`fused_adjoint_chunked_reference` is its
+  plain model), or one sweep per chain (many chains).
 
 Both dispatch on the device of their inputs alone: CPU tensors go to the
 plain PyTorch versions beside them, CUDA tensors to the kernels, with no
@@ -42,12 +46,16 @@ from ..ode.tableaus import get_tableau
 from ..params import SEPAIHRDParams
 from .sepaihrd_fused import (N_AGES, _check_inputs, build_objective_fused,
                              check_schedule, check_tensors, host_consts,
-                             op_count, plain_forward)
+                             op_count, plain_days, plain_forward)
 
 L_CHUNK = 24        # days per checkpoint (csrc/sepaihrd_adjoint.cu kChunk)
-MAX_SUBSTEPS = 16   # kMaxSubsteps: K3 keeps one day's substep starts
+MAX_SUBSTEPS = 16   # K3's scratch holds the state after every substep
 _CARRIED = 10
-_THREADS = 128      # kThreads
+_SWEEPS = 29        # kSweeps: regime 1's particular + 7 x 4 homogeneous sweeps
+_OUT_ROWS = 67      # kOutRows: rows of a chunk's affine map
+SCRATCH_CAP = 1 << 30       # bytes of scratch one K3 call may hold
+# regime 1 up to this many (chain, chunk) blocks an SM, by bytes a value
+CHUNK_BLOCKS_PER_SM = {4: 50, 8: 37}
 
 
 def num_chunks(n_intervals: int) -> int:
@@ -177,39 +185,94 @@ def fused_adjoint(agevec: torch.Tensor, scal: torch.Tensor, beff: torch.Tensor,
                                        M, **kw)
     if agevec.device.type != "cuda":
         raise ValueError(f"unsupported device {agevec.device}")
+    out, regime, n_kernels = _launch_adjoint(agevec, scal, beff, obs, valid,
+                                             ckpt, g, M, **kw)
+    fused_adjoint.launches += 1
+    fused_adjoint.kernel_launches += n_kernels
+    fused_adjoint.regime = regime
+    fused_adjoint.regime_calls[regime] += 1
+    return out
+
+
+fused_adjoint.launches = 0          # calls that launched K3
+fused_adjoint.kernel_launches = 0   # the __global__ launches those calls made
+fused_adjoint.regime = None         # the regime of the last call
+fused_adjoint.regime_calls = {1: 0, 2: 0}   # those calls by regime
+
+
+def choose_regime(B: int, n_chunks: int, sm_count: int, elem: int,
+                  chunked_scratch_bytes: int) -> int:
+    """K3's regime for ``B`` chains of ``elem``-byte values on a card with
+    ``sm_count`` SMs.
+
+    Regime 1 (chunk-parallel) launches one block per (chain, chunk) that
+    does 29 times the transpose arithmetic to cut the serial chain from all
+    days to one chunk's. Its time grows with the number of blocks, regime
+    2's (one lane group per chain, least arithmetic, one chain of all days)
+    hardly with B, so regime 1 is taken while ``B * n_chunks <=
+    CHUNK_BLOCKS_PER_SM[elem] * sm_count`` and its scratch (every stage
+    input of every day) fits ``SCRATCH_CAP``. The constants come from
+    ``chip_smoke.py``'s crossover timings on an H100 (PERF.md) at 14 chunks
+    and 132 SMs: in float32 regime 1 still wins at B = 448 and loses at 512,
+    in float64 it wins at 320 and loses at 384, and the constants put the
+    switch where the two timed neighbours' lines cross, B <= 471 and
+    B <= 348."""
+    few = B * n_chunks <= CHUNK_BLOCKS_PER_SM[elem] * sm_count
+    return 1 if few and chunked_scratch_bytes <= SCRATCH_CAP else 2
+
+
+def _launch_adjoint(agevec, scal, beff, obs, valid, ckpt, g, M, *, run_start,
+                    run_count, runup_offset: int, substeps: int = 4,
+                    tableau: str = "dopri5", regime: Optional[int] = None):
+    """Launch K3 on validated CUDA inputs: ``((dy0, dagevec, dscal, dbeff),
+    regime, kernels launched)``. ``regime`` forces 1 or 2 past
+    :func:`choose_regime`; only the card checks pass it."""
     lib = _lib()
     S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
                                            run_count)
     dev, dtype = agevec.device, agevec.dtype
-    n_threads = -(-N_AGES * B // _THREADS) * _THREADS
-    scratch = torch.empty(((L_CHUNK + 1) * _CARRIED * n_threads,), dtype=dtype,
-                          device=dev)
-    dy0 = torch.empty((C.NUM_COMPARTMENTS, N_AGES, B), dtype=dtype, device=dev)
-    dagevec = torch.empty((8, N_AGES, B), dtype=dtype, device=dev)
-    dscal = torch.empty((7, B), dtype=dtype, device=dev)
-    dbeff = torch.empty((len(run_start), B), dtype=dtype, device=dev)
+    B, n_runs, n_chunks = agevec.shape[-1], len(run_start), ckpt.shape[0]
+    n_intervals = int(sum(run_count))
+    elem = torch.finfo(dtype).bits // 8
+    need = lib.sepaihrd_adjoint_scratch_len
+    need.restype = ctypes.c_longlong
+    need.argtypes = [ctypes.c_int] * 7
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+        if regime is None:
+            regime = choose_regime(
+                B, n_chunks, sm_count, elem,
+                elem * need(1, B, int(substeps), S, n_intervals, n_runs, 1))
+        # regime 2 holds the substep states of one wave of chunks at a time
+        per_chunk = elem * L_CHUNK * int(substeps) * _CARRIED * N_AGES * B
+        wave = max(1, min(n_chunks, SCRATCH_CAP // per_chunk))
+        scratch = torch.empty(
+            (need(regime, B, int(substeps), S, n_intervals, n_runs, wave),),
+            dtype=dtype, device=dev)
+        dy0 = torch.empty((C.NUM_COMPARTMENTS, N_AGES, B), dtype=dtype,
+                          device=dev)
+        dagevec = torch.empty((8, N_AGES, B), dtype=dtype, device=dev)
+        dscal = torch.empty((7, B), dtype=dtype, device=dev)
+        dbeff = torch.empty((n_runs, B), dtype=dtype, device=dev)
+        n_kernels = ctypes.c_int(0)
         fn = lib.sepaihrd_adjoint_f32 if dtype == torch.float32 \
             else lib.sepaihrd_adjoint_f64
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int] * 4
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         err = fn(agevec.data_ptr(), scal.data_ptr(), beff.data_ptr(),
                  obs.data_ptr(), valid.data_ptr(), ckpt.data_ptr(),
                  g.data_ptr(), dy0.data_ptr(), dagevec.data_ptr(),
                  dscal.data_ptr(), dbeff.data_ptr(), scratch.data_ptr(),
                  scratch.numel(), B, obs.shape[0], int(runup_offset),
-                 int(substeps), S, fsal, a, b, m, len(run_start), rs, rc,
-                 n_chunks, stream)
+                 int(substeps), S, fsal, a, b, m, n_runs, rs, rc, n_chunks,
+                 int(regime), wave, sm_count, ctypes.byref(n_kernels), stream)
     _raise_on(lib, err, "sepaihrd_adjoint")
-    fused_adjoint.launches += 1
-    return dy0, dagevec, dscal, dbeff
-
-
-fused_adjoint.launches = 0
+    return (dy0, dagevec, dscal, dbeff), int(regime), n_kernels.value
 
 
 def fused_adjoint_reference(agevec, scal, beff, obs, valid, ckpt, g, M, *,
@@ -233,37 +296,113 @@ def fused_adjoint_reference(agevec, scal, beff, obs, valid, ckpt, g, M, *,
     return tuple(gr.detach() for gr in grads)
 
 
+def fused_adjoint_chunked_reference(agevec, scal, beff, obs, valid, ckpt, g,
+                                    M, *, run_start, run_count,
+                                    runup_offset: int, substeps: int = 4,
+                                    tableau: str = "dopri5"):
+    """A plain PyTorch model of K3's chunk-parallel regime: the same four
+    outputs as :func:`fused_adjoint_reference`, computed chunk by chunk with
+    no cotangent carried between the chunks' sweeps.
+
+    The backward sweep is affine in the cotangent ``lam`` that enters a
+    chunk from the later one, and ``lam`` has 7 x 4 non-zero entries per
+    chain (the D/CumH/CumICU rows are reset at every day boundary). So each
+    chunk is pulled back on its own from its checkpoint, 1 + 28 times: once
+    with ``lam = 0`` and the fold's cotangent ``g`` as source (the particular
+    pull), and once per unit ``lam`` without source (the homogeneous pulls).
+    A last pass walks the chunks from the last to the first, ``lam <- A_c
+    lam + b_c``, and accumulates the parameter cotangents ``dq += G_c lam +
+    h_c``; it runs in float64 whatever the inputs' type, as the kernel's."""
+    B, n_runs = agevec.shape[-1], len(run_count)
+    n, n_chunks = int(sum(run_count)), ckpt.shape[0]
+    kw = dict(run_start=run_start, run_count=run_count,
+              runup_offset=runup_offset, substeps=substeps, tableau=tableau,
+              incidence=_strict_incidence)
+    unit = torch.zeros((28, _CARRIED, N_AGES, B), dtype=agevec.dtype,
+                       device=agevec.device)
+    for j in range(28):
+        unit[j, j // N_AGES, j % N_AGES] = 1.0
+
+    def pull(out, leaves, grad_outputs, batched):
+        shape = (28,) if batched else ()
+        if not out.requires_grad:        # e.g. a chunk with no observed day
+            return [torch.zeros(shape + t.shape, dtype=t.dtype,
+                                device=t.device) for t in leaves]
+        grads = torch.autograd.grad(out, leaves, grad_outputs=grad_outputs,
+                                    retain_graph=True, allow_unused=True,
+                                    is_grads_batched=batched)
+        return [torch.zeros(shape + t.shape, dtype=t.dtype, device=t.device)
+                if gr is None else gr.double() for gr, t in zip(grads, leaves)]
+
+    chunks = []
+    for c in range(n_chunks):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (ckpt[c], agevec, scal, beff)]
+            ll, y_end, _ = plain_days(
+                *leaves, obs, valid, M, **kw,
+                days=(c * L_CHUNK, min((c + 1) * L_CHUNK, n)))
+            chunks.append((pull(ll, leaves, g.reshape(B), False),
+                           pull(y_end, leaves, unit, True)))
+
+    lam = torch.zeros((28, B), dtype=torch.float64, device=agevec.device)
+    acc = [torch.zeros(shape, dtype=torch.float64, device=agevec.device)
+           for shape in ((8, N_AGES, B), (7, B), (n_runs, B))]
+    for particular, homogeneous in reversed(chunks):
+        step = [h.double() + torch.einsum("jb,j...b->...b", lam, G.double())
+                for h, G in zip(particular, homogeneous)]
+        acc = [a + s for a, s in zip(acc, step[1:])]
+        lam = step[0][:7].reshape(28, B)
+    dy0 = torch.zeros((C.NUM_COMPARTMENTS, N_AGES, B), dtype=torch.float64,
+                      device=agevec.device)
+    dy0[:7] = lam.reshape(7, N_AGES, B)
+    return tuple(t.to(agevec.dtype) for t in [dy0] + acc)
+
+
 def op_count_adjoint(tableau: str, substeps: int, n_intervals: int,
-                     n_obs_days: int) -> dict:
+                     n_obs_days: int, n_runs: int = 1) -> dict:
     """Floating-point operations per chain, counted from the kernels' source
     as :func:`.sepaihrd_fused.op_count` is: per age lane, 41 per RHS, 95 per
     RHS transpose (``rhs_vjp``), 20 per non-zero stage or update coefficient
-    in a forward substep, 20 per non-zero stage coefficient for the stage
-    cotangent's axpy, 10 per non-zero update coefficient and 10 per stage
-    for the cotangent's seed and sum, and 18 per observed day for the fold
-    adjoint.
+    in a forward substep and 18 per observed day for the fold adjoint.
 
     ``"fwd"``: K2, which does K1's arithmetic (its checkpoint stores are
     bytes). ``"bwd"``: the least arithmetic of K3's function, one
-    re-integration from the checkpoints plus the transpose of every substep;
-    the bounds use it. ``"bwd_design"``: K3 as built, which on top of that
-    recomputes each day's substep starts (``substeps - 1`` fresh substeps)
-    and each substep's stage inputs (one more forward substep, its update
-    excepted) to keep no stage values between phases."""
+    re-integration from the checkpoints plus the transpose of every substep
+    (10 rows a stage: 20 per non-zero stage coefficient for the stage
+    cotangent's axpy, 10 per non-zero update coefficient and 10 per stage
+    for its seed and sum); the bounds use it. ``"bwd_design"``: K3 as built,
+    by regime. Both re-integrate once (stage "days") and recompute each
+    substep's stage inputs (all but the last stage's RHS, and the stage
+    axpys), and transpose with 7-row stage cotangents (14 per non-zero stage
+    coefficient, 10 per non-zero update coefficient, 7 per stage). Regime 2
+    does that once. Regime 1 computes each stage's contact matvec (11 of
+    the transpose's 95) once beside the stage inputs, transposes 29 times
+    (one particular and 28 homogeneous sweeps) and composes the chunks'
+    affine maps (57 per row of a chunk's map and per (chunk, run) segment,
+    once per chain)."""
     tab = get_tableau(tableau)
     S = tab.stages
     nnz_a = int(np.count_nonzero(np.tril(tab.a, -1)))
     nnz_b = int(np.count_nonzero(tab.b))
     fwd = op_count(tableau, substeps, n_intervals, n_obs_days)
     rhs_per_day = 1 + substeps * (S - 1) if tab.fsal else substeps * S
-    day = 41 * rhs_per_day + 20 * (nnz_a + nnz_b) * substeps       # phase 1
+    day = 41 * rhs_per_day + 20 * (nnz_a + nnz_b) * substeps
     transpose = S * (95 + 10) + 20 * nnz_a + 10 * nnz_b
-    recompute = ((substeps - 1) * (41 * S + 20 * (nnz_a + nnz_b))
-                 + substeps * (41 * S + 20 * nnz_a))
     fold = 18 * n_obs_days
     bwd = n_intervals * (day + substeps * transpose) + fold
+    stage_inputs = 41 * (S - 1) + 20 * nnz_a
+    axpys7 = 7 * S + 14 * nnz_a + 10 * nnz_b
+    n_chunks = num_chunks(n_intervals)
+    compose = 57 * (n_chunks * _OUT_ROWS + n_chunks + n_runs - 1)
+
+    def design(per_substep):
+        return n_intervals * (day + substeps * per_substep) + fold
+
+    chunked = stage_inputs + 11 * S + _SWEEPS * (84 * S + axpys7)
     return {"fwd": fwd, "bwd": N_AGES * bwd,
-            "bwd_design": N_AGES * (bwd + n_intervals * recompute)}
+            "bwd_design": {1: N_AGES * design(chunked) + compose,
+                           2: N_AGES * design(stage_inputs + 95 * S + axpys7)}}
 
 
 class FusedObjectiveFn(torch.autograd.Function):

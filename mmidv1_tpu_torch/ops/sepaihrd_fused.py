@@ -215,7 +215,24 @@ def plain_forward(y0, agevec, scal, beff, obs, valid, M, *, run_start,
     every ``t % chunk == 0``, else None. ``incidence(cv)`` is the clamp of
     a day's raw incidence before the ``+ 1e-10``; its forward value must be
     ``max(cv, 0)``, and its gradient is the caller's choice."""
-    dtype, dev = y0.dtype, y0.device
+    ll, _y, ckpts = plain_days(
+        y0[_CARRIED], agevec, scal, beff, obs, valid, M, run_start=run_start,
+        run_count=run_count, runup_offset=runup_offset, substeps=substeps,
+        tableau=tableau, chunk=chunk, incidence=incidence)
+    return ll, (torch.stack(ckpts) if chunk else None)
+
+
+def plain_days(y, agevec, scal, beff, obs, valid, M, *, run_start, run_count,
+               runup_offset: int, substeps: int = 4, tableau: str = "dopri5",
+               chunk: int = 0, incidence=sepaihrd.max0, days=None):
+    """The days ``[days[0], days[1])`` (default: all) of the plain forward,
+    from the carried pre-reset state ``y (10, 4, B)`` at the start of day
+    ``days[0]``: ``(ll (B,), y_end (10, 4, B), ckpts)``, where ``ll`` is the
+    Kahan sum of these days' Poisson terms (plus observation row 0's
+    constant term when day 0 is included and there is no run-up), ``y_end``
+    the pre-reset state after the last day and ``ckpts`` the list of
+    day-start states at every ``t % chunk == 0`` (empty for ``chunk == 0``)."""
+    dtype, dev = y.dtype, y.device
     tab = get_tableau(tableau)
     Mt = torch.as_tensor(np.asarray(M, dtype=np.float64), dtype=dtype, device=dev)
     a_, hinfN, p, hh, icu, dH, dICU, dcomm = agevec.unbind(0)     # (4, B) each
@@ -248,11 +265,11 @@ def plain_forward(y0, agevec, scal, beff, obs, valid, M, *, run_start,
         return torch.sum(obs[j][..., None] * torch.log(incs)
                          - valid[j][..., None] * incs, dim=(0, 1))
 
-    B = y0.shape[-1]
-    y = y0[_CARRIED]
+    B = y.shape[-1]
+    first, last = days if days is not None else (0, int(sum(run_count)))
     ll = torch.zeros(B, dtype=dtype, device=dev)
     comp = torch.zeros(B, dtype=dtype, device=dev)
-    if runup_offset == 0:
+    if runup_offset == 0 and first == 0:
         ll = ll + poisson_row(0, torch.full((3, N_AGES, B), eps, dtype=dtype,
                                             device=dev))
     T_obs = obs.shape[0]
@@ -260,7 +277,7 @@ def plain_forward(y0, agevec, scal, beff, obs, valid, M, *, run_start,
     for r, (start, count) in enumerate(zip(run_start, run_count)):
         beta = beff[r]
         f = lambda t, yy, beta=beta: rhs(yy, beta)
-        for t in range(start, start + count):
+        for t in range(max(start, first), min(start + count, last)):
             if chunk and t % chunk == 0:
                 ckpts.append(y)
             y = y.clone()
@@ -273,7 +290,7 @@ def plain_forward(y0, agevec, scal, beff, obs, valid, M, *, run_start,
                 ll_new = ll + contrib
                 comp = (ll_new - ll) - contrib
                 ll = ll_new
-    return ll, (torch.stack(ckpts) if chunk else None)
+    return ll, y, ckpts
 
 
 def op_count(tableau: str, substeps: int, n_intervals: int, n_obs_days: int) -> int:

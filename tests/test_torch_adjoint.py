@@ -237,10 +237,23 @@ def test_op_count_adjoint_tracks_tableau_work():
     day = 41 * 25 + 20 * 25 * 4
     per_lane = 325 * (day + 4 * (7 * 105 + 20 * 20 + 10 * 5)) + 18 * 306
     assert c["bwd"] == 4 * per_lane
-    # as built, also 3 fresh substeps (7 RHS, 25 coefficients) and 4 stage
-    # recomputes (7 RHS, 20 stage coefficients) per day
-    design = per_lane + 325 * (3 * (41 * 7 + 20 * 25) + 4 * (41 * 7 + 20 * 20))
-    assert c["bwd_design"] == 4 * design
-    assert 2 < c["bwd"] / c["fwd"] < 3 < c["bwd_design"] / c["fwd"] < 5
+    # as built, by regime: the stage inputs again per substep (6 RHS, 20
+    # stage coefficients) and 7-row transposes (7 x (95 + 7), 14 per stage
+    # and 10 per update coefficient) once (regime 2); or the stage inputs
+    # with their 7 contact matvecs (11 each) and 29 transposes without
+    # them (regime 1), plus the 14 chunk maps of 67 rows and the 20
+    # (chunk, run) segments
+    stage_inputs = 41 * 6 + 20 * 20
+    axpys7 = 7 * 7 + 14 * 20 + 10 * 5
+    design = {1: 325 * (day + 4 * (stage_inputs + 7 * 95 + axpys7)) + 18 * 306,
+              29: 325 * (day + 4 * (stage_inputs + 7 * 11
+                                    + 29 * (7 * 84 + axpys7))) + 18 * 306}
+    c7 = adj.op_count_adjoint("dopri5", 4, 325, 306, n_runs=7)
+    assert c7["bwd"] == c["bwd"]
+    assert c7["bwd_design"] == {2: 4 * design[1],
+                                1: 4 * design[29] + 57 * (14 * 67 + 14 + 6)}
+    assert 2 < c["bwd"] / c["fwd"] < 3 < c7["bwd_design"][2] / c["fwd"] < 4
+    assert 15 < c7["bwd_design"][1] / c["bwd"] < 29
     cheap = adj.op_count_adjoint("cash_karp", 3, 325, 306)
-    assert cheap["bwd"] < c["bwd"] and cheap["bwd_design"] < c["bwd_design"]
+    assert cheap["bwd"] < c["bwd"]
+    assert all(cheap["bwd_design"][r] < c["bwd_design"][r] for r in (1, 2))

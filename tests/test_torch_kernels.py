@@ -51,7 +51,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _objective(device, dtype, runup=True):
+def _objective(device, dtype, runup=True, n_days=35):
     """The tests/test_pallas.py problem (35 days, substeps=2, 8 names)."""
     prm = spain_like_prm()
     keys = ("beta", "beta_end_times", "beta_values", "kappa_end_times",
@@ -61,7 +61,6 @@ def _objective(device, dtype, runup=True):
     params = make_params(N=prm["N"], M_baseline=prm["M"],
                          runup_days=prm["runup_days"] if runup else 0.0,
                          **{k: prm[k] for k in keys}, dtype=dtype, device=device)
-    n_days = 35
     rng = np.random.default_rng(9)
     obs = rng.poisson(6.0, size=(n_days, 4)).astype(float)
     obs_icu = obs * 0.2
@@ -199,51 +198,81 @@ def test_forward_ckpt_matches_plain_version(cuda, dtype, rtol, tableau):
                                        k1.double().cpu().numpy(), rtol=rtol)
 
 
+def _adjoint(regime, agevec, scal, beff, obs, valid, ck, g, M, kw):
+    """K3 through its wrapper (``regime`` None: the rule picks, and the call
+    is counted) or forced into a regime through the launcher."""
+    if regime is None:
+        before = adj.fused_adjoint.launches
+        by_regime = dict(adj.fused_adjoint.regime_calls)
+        got = adj.fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)
+        assert adj.fused_adjoint.launches == before + 1
+        assert adj.fused_adjoint.regime in (1, 2)
+        by_regime[adj.fused_adjoint.regime] += 1
+        assert adj.fused_adjoint.regime_calls == by_regime
+        return got
+    got, used, n_kernels = adj._launch_adjoint(agevec, scal, beff, obs, valid,
+                                               ck, g, M, regime=regime, **kw)
+    assert used == regime and n_kernels >= 2
+    return got
+
+
+def _check_adjoint(cuda, dtype, tableau, regime, runup, n_days, B):
+    ll, theta0 = _objective(cuda, dtype, runup, n_days)
+    (y0, agevec, scal, beff, obs, valid, M), kw, _inf = _args(ll, theta0, B, B)
+    kw = dict(kw, substeps=2, tableau=tableau)
+    _k, ck = adj.fused_forward_ckpt(y0, agevec, scal, beff, obs, valid, M, **kw)
+    g = torch.as_tensor(np.random.default_rng(B).uniform(0.5, 1.5, B),
+                        dtype=dtype, device=cuda)
+    got = _adjoint(regime, agevec, scal, beff, obs, valid, ck, g, M, kw)
+    torch.cuda.synchronize()
+    ref = adj.fused_adjoint_reference(agevec, scal, beff, obs, valid, ck, g, M,
+                                      **kw)
+    for name, a, b in zip(("dy0", "dagevec", "dscal", "dbeff"), got, ref):
+        assert a.shape == b.shape
+        _per_chain_close(a, b, dtype, f"{tableau} {name} B={B}")
+    assert (got[0][[7, 8, 9, 10]] == 0).all()   # R; reset rows
+    return ck.shape[0]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("regime", [None, 1, 2])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
-def test_adjoint_matches_plain_version(cuda, dtype, tableau):
+def test_adjoint_matches_plain_version(cuda, dtype, tableau, regime):
     """K3: all four gradient outputs against autograd through the plain
-    forward, with and without run-up, for a random cotangent."""
+    forward, with and without run-up, for a random cotangent, in the regime
+    the rule picks and in each regime forced."""
     for runup in (True, False):
-        ll, theta0 = _objective(cuda, dtype, runup)
         for B in (1, 5, 37):
-            (y0, agevec, scal, beff, obs, valid, M), kw, _inf = \
-                _args(ll, theta0, B, B)
-            kw = dict(kw, substeps=2, tableau=tableau)
-            _k, ck = adj.fused_forward_ckpt(y0, agevec, scal, beff, obs,
-                                            valid, M, **kw)
-            g = torch.as_tensor(np.random.default_rng(B).uniform(0.5, 1.5, B),
-                                dtype=dtype, device=cuda)
-            before = adj.fused_adjoint.launches
-            got = adj.fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M,
-                                    **kw)
-            torch.cuda.synchronize()
-            assert adj.fused_adjoint.launches == before + 1
-            ref = adj.fused_adjoint_reference(agevec, scal, beff, obs, valid,
-                                              ck, g, M, **kw)
-            for name, a, b in zip(("dy0", "dagevec", "dscal", "dbeff"),
-                                  got, ref):
-                assert a.shape == b.shape
-                _per_chain_close(a, b, dtype, f"{tableau} {name} B={B}")
-            assert (got[0][[7, 8, 9, 10]] == 0).all()   # R; reset rows
+            _check_adjoint(cuda, dtype, tableau, regime, runup, 35, B)
 
 
 @pytest.mark.cuda
-def test_adjoint_sums_beta_per_run(cuda):
-    """K3's per-run d(beta), flushed at run boundaries, equals the sum over
-    the run's days of the per-day d(beta) (one schedule run per day)."""
+@pytest.mark.parametrize("regime", [1, 2])
+@pytest.mark.parametrize("runup,n_days,chunks", [(True, 30, 3), (False, 20, 1)])
+def test_adjoint_ragged_and_single_chunk(cuda, regime, runup, n_days, chunks):
+    """50 intervals (the last chunk holds 2 days) and 20 (one chunk only)."""
+    for dtype in (torch.float64, torch.float32):
+        assert _check_adjoint(cuda, dtype, "dopri5", regime, runup, n_days,
+                              7) == chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", [None, 1, 2])
+def test_adjoint_sums_beta_per_run(cuda, regime):
+    """K3's per-run d(beta) equals the sum over the run's days of the
+    per-day d(beta) (one schedule run per day), in every regime."""
     ll, theta0 = _objective(cuda, torch.float64)
     (y0, agevec, scal, beff, obs, valid, M), kw, _inf = _args(ll, theta0, 6, 3)
     kw = dict(kw, substeps=2, tableau="dopri5")
     _k, ck = adj.fused_forward_ckpt(y0, agevec, scal, beff, obs, valid, M, **kw)
     g = torch.ones(6, dtype=torch.float64, device=cuda)
-    dbeff = adj.fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)[3]
+    dbeff = _adjoint(regime, agevec, scal, beff, obs, valid, ck, g, M, kw)[3]
     days = [r for r, c in enumerate(kw["run_count"]) for _ in range(c)]
     n = len(days)
     kw_day = dict(kw, run_start=tuple(range(n)), run_count=(1,) * n)
-    dday = adj.fused_adjoint(agevec, scal, beff[days].contiguous(), obs, valid,
-                             ck, g, M, **kw_day)[3]
+    dday = _adjoint(regime, agevec, scal, beff[days].contiguous(), obs, valid,
+                    ck, g, M, kw_day)[3]
     summed = torch.zeros_like(dbeff).index_add_(0, torch.as_tensor(
         days, device=cuda), dday)
     np.testing.assert_allclose(dbeff.cpu().numpy(), summed.cpu().numpy(),
