@@ -3,16 +3,30 @@
 
     python3 chip_smoke.py          # everything; the last line says ok
     python3 chip_smoke.py --k3     # build, then phases 7 and 8 only (no ok line)
+    python3 chip_smoke.py --fwd    # build, then phase 2b only: K1 and K2 (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels of ``mmidv1_tpu_torch/csrc`` from source, one
      nvcc per source, all at once (K1; K2 and K3);
+  2b. the forward kernels K1 and K2 in their two regimes (split: the
+     infection subsystem on producer warps, the linear rows and the fold on
+     consumer warps; wide: one thread per (chain, age)): ptxas (registers,
+     spills, shared memory), the SASS instruction count of the substep loop
+     (cuobjdump), the SM clock under load, each regime forced and held
+     against the plain version at B = 64, 1024 and 8192 in float32 (rtol
+     5e-6) and float64 (rtol 1e-10) and against the other regime (to the
+     bit: any value that differs fails), timed in turns (wide, split, split,
+     wide; CUDA events over 10 launches), both regimes over B = 64 ... 8192,
+     3072 included (the crossover behind `choose_forward_regime`), and for
+     each the ns per dependent RK stage beside the chain bound (stages x the
+     cycles a stage of the recurrence's longest dependency cycle / the SM
+     clock);
   3. hold K1 (the fused SEPAIHRD objective) against its plain PyTorch
      version on the card, at the full Spain-2020 width (62 parameters,
      325 daily intervals, 7 schedule runs): B = 8192 chains in float64
-     (rtol 1e-10) and float32 (rtol 2e-4, the float32 noise floor at
-     LL ~1.4e6 is O(1e2)), dopri5@4 and cash_karp@3, plus the main path's
+     (rtol 1e-10) and float32 (rtol 5e-6: every reading on an H100 was
+     below 1e-6), dopri5@4 and cash_karp@3, plus the main path's
      own shape (1024 chains, float32, dopri5@4); a few chains carry a NaN
      parameter and must come out as NaN from both and as finfo.min from
      the objective; time the kernel (CUDA events) and the plain version;
@@ -21,9 +35,10 @@ Phases (any failure exits non-zero before the final line):
   5. the PSO -> AM-MH path, ``mmidv1_tpu_torch.cli.calibrate_spain``,
      psomcmc in float32 (512 PSO particles x 5 iterations, then AM-MH with
      1024 chains x 100 steps), K1's launch count set to 0 just before and
-     read just after;
+     read just after: the 100 MH steps must have run in the regime the rule
+     picks at 1024 chains;
   6. hold K2 (forward with checkpoints) against its plain version: LL and
-     checkpoints at B = 8192, f64 rtol 1e-10 and f32 rtol 2e-4;
+     checkpoints at B = 8192, f64 rtol 1e-10 and f32 rtol 5e-6;
   7. hold K3 (the adjoint) against its plain version (autograd through the
      plain forward, whose saved tensors limit it to B = 512): all four
      gradient outputs, f64 rtol 1e-9 with an absolute floor of 1e-9 x the
@@ -46,8 +61,8 @@ Phases (any failure exits non-zero before the final line):
  10. the NUTS path, ``calibrate_spain`` with ``--algorithm nuts --full``
      (64 chains, nuts_settings.txt: 25 iterations of depth 3), float32,
      with the K1/K2/K3 launch counts set to 0 just before and read after:
-     every K3 call must run in the regime the rule picks at 64 chains and
-     launch that regime's kernels;
+     every K2 and K3 call must run in the regime its rule picks at 64
+     chains, K3 launching that regime's kernels;
  11. two short MALA runs through the same K2/K3 engine, float32, launches
      counted from 0: 64 chains x 20 iterations (K3's regime 1), and 1024
      chains x 5 iterations, above the crossover, where every K3 call must
@@ -68,6 +83,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MAP_LL = 1432889.7908967654          # results/spain2020/run_metadata.json
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # H100 SXM, non-tensor
 PEAK_BYTES = 3.35e12                                 # H100 SXM HBM3
+# K1 and K2 against the plain version, relative: log-likelihoods, and
+# checkpoints with a floor of the row's largest entry. float32 read 1.0e-7 to
+# 8.0e-7 at every shape on an H100 (the kernel contracts into FMAs, the plain
+# version does not), so a wrong coefficient on one stage cannot pass.
+FWD_TOL = {"float64": 1e-10, "float32": 5e-6}
 
 
 def fail(msg):
@@ -132,6 +152,7 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
     args, kw, infeasible = ll.prep.kernel_args(thetas)
     kw = dict(kw, substeps=substeps, tableau=tableau)
     k = fused_objective(*args, **kw)
+    regime = fused_objective.regime
     torch.cuda.synchronize()
     r = fused_objective_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -165,12 +186,14 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
     flops = B * op_count(tableau, substeps, n_intervals, pipe.data.n_data_points)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
     out = dict(case=case, B=B, dtype=dtype_name, tableau=tableau,
-               substeps=substeps, tol_rel=tol, max_rel_err=max_rel,
+               substeps=substeps, regime=regime, tol_rel=tol,
+               max_rel_err=max_rel,
                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                objective_ms=objective_ms, bytes=nbytes, flops=flops,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes > t_ops else "operations")
-    print(f"[compare] {case}: max rel err {max_rel:.3e} (tol {tol:.0e}), "
+    print(f"[compare] {case} ({REGIMES[regime]} regime): max rel err "
+          f"{max_rel:.3e} (tol {tol:.0e}), "
           f"max abs err {max_abs:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
           f"objective (prep + kernel) {objective_ms:.3f} ms, bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']})", flush=True)
@@ -364,7 +387,7 @@ def time_adjoint(B, dtype_name, cache, plain):
     each regime forced (regime 1 up to B = 2048: it keeps every stage
     input); with ``plain`` also their plain versions' (one run each), and
     the kernels' outputs held against them (LL and checkpoints at rtol
-    1e-10 f64 / 2e-4 f32, gradients at 1e-9 / 1e-3 as in ``check_k3``)."""
+    ``FWD_TOL``, gradients at 1e-9 f64 / 1e-3 f32 as in ``check_k3``)."""
     import torch
     from mmidv1_tpu_torch.calibration.param_space import CLAMP
     from mmidv1_tpu_torch.ops import (fused_adjoint, fused_adjoint_reference,
@@ -381,7 +404,8 @@ def time_adjoint(B, dtype_name, cache, plain):
     calls, kernels = fused_adjoint.launches, fused_adjoint.kernel_launches
     grads = bwd()
     reps = 10 if B <= 1024 else 3
-    out = dict(B=B, dtype=dtype_name, k3_regime=fused_adjoint.regime,
+    out = dict(B=B, dtype=dtype_name, k2_regime=fused_forward_ckpt.regime,
+               k3_regime=fused_adjoint.regime,
                k3_kernels_per_call=(fused_adjoint.kernel_launches - kernels)
                // (fused_adjoint.launches - calls),
                k2_ms=cuda_ms(lambda: fused_forward_ckpt(*args, **kw), reps),
@@ -398,7 +422,7 @@ def time_adjoint(B, dtype_name, cache, plain):
     out["k2_bound"], out["k3_bound"] = bounds["fwd"], bounds["bwd"]
     design = bounds["bwd"]["design_bound_ms"]
     print(f"[time] B={B} {dtype_name} dopri5@4: K2 {out['k2_ms']:.3f} ms "
-          f"(bound {bounds['fwd']['bound_ms']:.4f}, {bounds['fwd']['bound_by']}), "
+          f"({REGIMES[out['k2_regime']]} regime; bound {bounds['fwd']['bound_ms']:.4f}, {bounds['fwd']['bound_by']}), "
           f"K3 {out['k3_ms']:.3f} ms in regime {out['k3_regime']} "
           f"({out['k3_kernels_per_call']} kernels a call; bound "
           f"{bounds['bwd']['bound_ms']:.4f}, {bounds['bwd']['bound_by']}; as "
@@ -424,7 +448,8 @@ def time_adjoint(B, dtype_name, cache, plain):
         ref3, out["k3_plain_ms"] = cuda_once(
             lambda: fused_adjoint_reference(*k3_args, **kw))
         case = f"{dtype_name} dopri5@4 B={B} CLAMP (NUTS shape)"
-        tol2, tol3 = (1e-10, 1e-9) if dtype_name == "float64" else (2e-4, 1e-3)
+        tol2 = FWD_TOL[dtype_name]
+        tol3 = 1e-9 if dtype_name == "float64" else 1e-3
         out["k2_check"] = check_k2(case, (ll, ck), ref2, tol2)
         out["k3_check"] = check_k3(f"{case} regime {out['k3_regime']} (picked)",
                                    grads, ref3, dtype_name, tol3)
@@ -501,12 +526,299 @@ def regime_crossover(cache, sizes=(64, 128, 256, 320, 384, 448, 512, 1024,
     return rows
 
 
+REGIMES = {1: "split", 2: "wide"}
+
+
+def forward_ptxas(build_dir):
+    """Registers, spills and static shared memory of every forward kernel
+    (K1's instantiations in sepaihrd_fused, K2's in sepaihrd_adjoint), from
+    the builds' own ptxas reports; one line each."""
+    import re
+    out = {}
+    for src in ("sepaihrd_fused", "sepaihrd_adjoint"):
+        key = None
+        with open(os.path.join(build_dir, f"{src}.ptxas.txt")) as f:
+            for ln in f:
+                if "Function properties for" in ln:
+                    m = re.search(r"sepaihrd_forward_(wide|split)_kernelI([fd])"
+                                  r"Li(\d+)ELb([01])E", ln)
+                    key = m and (f"{'K2' if m.group(4) == '1' else 'K1'} "
+                                 f"{m.group(1)} "
+                                 f"{'float32' if m.group(2) == 'f' else 'float64'}"
+                                 f" S={m.group(3)}")
+                elif key and "bytes stack frame" in ln:
+                    stack, stores, loads = (int(x) for x in
+                                            re.findall(r"(\d+) bytes", ln))
+                    out[key] = dict(stack=stack, spill_stores=stores,
+                                    spill_loads=loads)
+                elif key and "Used" in ln and "registers" in ln:
+                    out[key]["registers"] = int(
+                        re.search(r"Used (\d+) registers", ln).group(1))
+                    m = re.search(r"(\d+) bytes smem", ln)
+                    out[key]["static_smem"] = int(m.group(1)) if m else 0
+    if not any(k.startswith("K1 split") for k in out) or \
+            not any(k.startswith("K2 split") for k in out):
+        fail("no forward kernel in the ptxas reports")
+    for name, u in sorted(out.items()):
+        print(f"[ptxas-fwd] {name}: {u.get('registers')} registers, spill "
+              f"stores {u['spill_stores']} B, loads {u['spill_loads']} B, "
+              f"stack {u['stack']} B, static smem {u.get('static_smem')} B",
+              flush=True)
+    return out
+
+
+def sass_loops(lib_paths, out_dir):
+    """What the card runs: for the dopri5 forward kernels (S = 7, both
+    regimes, both types; K1 from the fused library, K2 from the adjoint
+    one) the SASS of the built libraries (cuobjdump), its loops (a backward
+    branch and its target) and their instruction counts by opcode. A loop's
+    RK stages are its shuffles over 4 (float32) or 8 (float64, two a value)
+    a right-hand side; a loop without shuffles is the consumer's. Returns
+    None where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        print("[sass] no cuobjdump in the toolkit: not counted", flush=True)
+        return None
+    os.makedirs(out_dir, exist_ok=True)
+    out = {}
+    for lib_path in lib_paths:
+        text = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                              text=True, timeout=600, check=True).stdout
+        for blk in re.split(r"\n\s*Function : ", text)[1:]:
+            name = blk.split("\n", 1)[0].strip()
+            m = re.search(r"sepaihrd_forward_(wide|split)_kernelI([fd])Li7ELb([01])E",
+                          name)
+            if m:
+                kind = (f"{'K2' if m.group(3) == '1' else 'K1'} {m.group(1)} "
+                        f"{'float32' if m.group(2) == 'f' else 'float64'}")
+                out[kind] = _sass_kernel(kind, blk, 4 if m.group(2) == "f" else 8,
+                                         out_dir)
+    if not out:
+        fail(f"cuobjdump shows no forward kernel in {lib_paths}")
+    return out
+
+
+def _sass_kernel(kind, blk, shuffles_per_rhs, out_dir):
+    """One kernel's SASS block: saved under ``out_dir``, its loops of 40
+    instructions or more printed and returned."""
+    import re
+    with open(os.path.join(out_dir, kind.replace(" ", "_") + ".sass"), "w") as f:
+        f.write(blk)
+    ins = []
+    for ln in blk.splitlines():
+        mm = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+        if mm:
+            toks = mm.group(2).split()
+            op = toks[1] if toks[0].startswith("@") else toks[0]
+            ins.append((int(mm.group(1), 16), op.split(".")[0], mm.group(2)))
+    loops = []
+    for addr, op, txt in ins:
+        tgt = re.search(r"\b0x([0-9a-f]+)\s*$", txt)
+        if op != "BRA" or not tgt or int(tgt.group(1), 16) > addr:
+            continue
+        body = [i for i in ins if int(tgt.group(1), 16) <= i[0] <= addr]
+        if len(body) < 40:
+            continue
+        hist = {}
+        for _a, o, _t in body:
+            hist[o] = hist.get(o, 0) + 1
+        loops.append(dict(start=hex(int(tgt.group(1), 16)), end=hex(addr),
+                          instructions=len(body),
+                          stages=hist.get("SHFL", 0) / shuffles_per_rhs,
+                          by_opcode=dict(sorted(hist.items(),
+                                                key=lambda kv: -kv[1]))))
+    print(f"[sass] {kind} dopri5: {len(ins)} instructions", flush=True)
+    for lp in loops:
+        top = ", ".join(f"{k} {v}" for k, v in list(lp["by_opcode"].items())[:9])
+        per = (f"{lp['instructions'] / lp['stages']:.1f} a stage"
+               if lp["stages"] else "no shuffle")
+        print(f"[sass]   loop {lp['start']}..{lp['end']}: {lp['instructions']} "
+              f"instructions, {lp['stages']:g} RHS by its shuffles ({per}); "
+              f"{top}", flush=True)
+    return dict(instructions=len(ins), loops=loops)
+
+
+def sm_clock_mhz(busy, launches=400):
+    """The SM clock in MHz that nvidia-smi reads while ``launches`` calls of
+    ``busy`` keep the card working, and the card's maximum."""
+    import torch
+    for _ in range(launches):
+        busy()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    torch.cuda.synchronize()
+    now, top = (float(x) for x in out.splitlines()[0].split(","))
+    print(f"[clock] SM clock under load {now:.0f} MHz (maximum {top:.0f})",
+          flush=True)
+    return now, top
+
+
+def forward_bounds(B, dtype_name, kw, n_obs, args, n_ckpt, clock_mhz):
+    """K1's (``n_ckpt`` 0) or K2's two bounds in ms: the roofline (bytes
+    over the memory rate against ``op_count`` over the non-tensor peak) and
+    the chain (dependent stages x the stage's shortest dependent chain in
+    cycles / the SM clock); ``design_bound_ms`` is the larger."""
+    from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+    elem = 8 if dtype_name == "float64" else 4
+    n_intervals = int(sum(kw["run_count"]))
+    nbytes = (sum(a.numel() for a in args[:6]) + B + n_ckpt) * elem
+    flops = B * sf.op_count(kw["tableau"], kw["substeps"], n_intervals, n_obs)
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
+    stages = sf.dependent_stages(kw["tableau"], kw["substeps"], n_intervals)
+    chain = stages * sf.chain_cycles(elem) / (clock_mhz * 1e3)
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b > t_o else "operations",
+                dependent_stages=stages, chain_cycles=sf.chain_cycles(elem),
+                chain_bound_ms=chain, design_bound_ms=max(t_b, t_o, chain))
+
+
+def forward_runs(args, kw):
+    """``{"K1": run(regime), "K2": ...}``: the two forward kernels through
+    their wrappers on one set of inputs, a regime forced."""
+    from mmidv1_tpu_torch.ops import fused_forward_ckpt, fused_objective
+    return {"K1": lambda regime: fused_objective(*args, **kw, regime=regime),
+            "K2": lambda regime: fused_forward_ckpt(*args, **kw, regime=regime)}
+
+
+def forward_case(cache, B, dtype_name, clock_mhz):
+    """K1 and K2 at dopri5@4 with ``B`` chains: each regime forced, held
+    against the plain version (LL, and K2's checkpoints row by row) and
+    against the other regime, and timed in turns."""
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import CLAMP, REFLECT
+    from mmidv1_tpu_torch.ops import (fused_forward_ckpt,
+                                      fused_forward_ckpt_reference,
+                                      fused_objective)
+
+    mode = CLAMP if B == 64 else REFLECT        # as NUTS / as MH prepare them
+    _vg, args, kw, _th = spain_case(cache, dtype_name, mode, "dopri5", 4, B,
+                                    B + 11)
+    tol = FWD_TOL[dtype_name]
+    case = f"{dtype_name} dopri5@4 B={B}"
+    # one plain run serves both: K1's plain LL is K2's to the bit
+    ref, plain_ms = cuda_once(lambda: fused_forward_ckpt_reference(*args, **kw))
+    out = dict(B=B, dtype=dtype_name, plain_ms=plain_ms, tol_rel=tol,
+               K1={}, K2={})
+    got = {}
+    for regime, name in REGIMES.items():
+        ll1 = fused_objective(*args, **kw, regime=regime)
+        ll2, ck = fused_forward_ckpt(*args, **kw, regime=regime)
+        torch.cuda.synchronize()
+        if fused_objective.regime != regime or fused_forward_ckpt.regime != regime:
+            fail(f"{case}: the wrappers did not run the forced regime {regime}")
+        got[regime] = (ll1, ll2, ck)
+        ll1n, rl = ll1.double().cpu().numpy(), ref[0].double().cpu().numpy()
+        if not np.isfinite(ll1n).all():
+            fail(f"K1 {case} {name}: non-finite log-likelihood")
+        rel = float((np.abs(ll1n - rl) / np.abs(rl)).max())
+        if not rel <= tol:
+            fail(f"K1 {case} {name}: rel err {rel:.3e} > {tol:.0e}")
+        print(f"[K1] {case} {name}: max rel err LL {rel:.3e} (tol {tol:.0e})",
+              flush=True)
+        out["K1"][name] = dict(max_rel_err=rel,
+                               max_abs_err=float(np.abs(ll1n - rl).max()))
+        out["K2"][name] = check_k2(f"{case} {name}", (ll2, ck), ref, tol)
+        out["K2"][name]["k1_bits_differ"] = int((ll1 != ll2).sum())
+    # the regimes do the same operations in the same order: no bit may differ
+    s, w = got[1], got[2]
+    out["regimes_differ"] = dict(
+        k1_ll=int((s[0] != w[0]).sum()), k2_ll=int((s[1] != w[1]).sum()),
+        k2_ckpt=int((s[2] != w[2]).sum()), ckpt_values=s[2].numel(),
+        k1_ll_max_rel=float(((s[0] - w[0]).abs() / w[0].abs()).max()))
+    d = out["regimes_differ"]
+    print(f"[regimes] {case}: split vs wide differ in {d['k1_ll']} of {B} K1 "
+          f"log-likelihoods (max rel {d['k1_ll_max_rel']:.2e}), {d['k2_ll']} "
+          f"of K2's, {d['k2_ckpt']} of {d['ckpt_values']} checkpoint values",
+          flush=True)
+    if d["k1_ll"] or d["k2_ll"] or d["k2_ckpt"]:
+        fail(f"{case}: the split and the wide regime differ: {d}")
+
+    runs = forward_runs(args, kw)
+    reps = 10 if B <= 1024 else 5
+    for kname, run in runs.items():
+        bounds = forward_bounds(B, dtype_name, kw, args[4].shape[0], args,
+                                0 if kname == "K1" else s[2].numel(), clock_mhz)
+        out[kname]["bounds"] = bounds
+        for regime in (2, 1, 1, 2):               # the mean of the two turns
+            name = REGIMES[regime]
+            out[kname][name]["ms"] = out[kname][name].get("ms", 0.0) + cuda_ms(
+                lambda: run(regime), reps) / 2
+        for name in REGIMES.values():
+            ms = out[kname][name]["ms"]
+            ns = ms * 1e6 / bounds["dependent_stages"]
+            out[kname][name]["ns_per_stage"] = ns
+            out[kname][name]["cycles_per_stage"] = ns * clock_mhz / 1e3
+            print(f"[time-fwd] {kname} {case} {name}: {ms:.4f} ms = {ns:.1f} ns "
+                  f"= {ns * clock_mhz / 1e3:.0f} cycles a dependent stage at "
+                  f"{clock_mhz:.0f} MHz; roofline bound "
+                  f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']}), chain "
+                  f"bound {bounds['chain_bound_ms']:.4f} ms "
+                  f"({bounds['chain_cycles']} cycles a stage)", flush=True)
+    return out
+
+
+def forward_crossover(cache, sizes=(64, 256, 512, 1024, 2048, 3072, 4096, 8192)):
+    """K1 and K2 in each regime (CUDA events, 10 launches, in turns) over B
+    in float32 and float64, dopri5@4, and what the rule picks there: the
+    measurement behind ``choose_forward_regime``."""
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for dtype_name in ("float32", "float64"):
+        for B in sizes:
+            _vg, args, kw, _th = spain_case(cache, dtype_name, REFLECT,
+                                            "dopri5", 4, B, B + 11)
+            row = dict(B=B, dtype=dtype_name,
+                       picked=sf.choose_forward_regime(B, sm_count))
+            for kname, run in forward_runs(args, kw).items():
+                for regime in (1, 2, 2, 1):        # the mean of the two turns
+                    key = f"{kname}_{REGIMES[regime]}_ms"
+                    row[key] = row.get(key, 0.0) + cuda_ms(
+                        lambda: run(regime), reps=10) / 2
+            rows.append(row)
+            print(f"[crossover-fwd] B={B} {dtype_name}: K1 split "
+                  f"{row['K1_split_ms']:.4f} ms, wide {row['K1_wide_ms']:.4f}; "
+                  f"K2 split {row['K2_split_ms']:.4f}, wide "
+                  f"{row['K2_wide_ms']:.4f}; the rule picks "
+                  f"{REGIMES[row['picked']]}", flush=True)
+    return rows
+
+
+def forward_phases(cache, build_dir):
+    """Phase 2b: ``{ptxas, sass, clock, cases, crossover}`` of K1 and K2."""
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.ops import _build
+
+    out = dict(ptxas=forward_ptxas(build_dir))
+    out["sass"] = sass_loops([_build.library_path("sepaihrd_fused"),
+                              _build.library_path("sepaihrd_adjoint")],
+                             os.path.join(HERE, "chiprun_out", "sass"))
+    _vg, args, kw, _th = spain_case(cache, "float32", REFLECT, "dopri5", 4,
+                                    1024, 3)
+    run = forward_runs(args, kw)["K1"]
+    out["clock_mhz"], out["clock_max_mhz"] = sm_clock_mhz(lambda: run(2))
+    out["cases"] = [forward_case(cache, B, d, out["clock_mhz"])
+                    for B in (64, 1024, 8192) for d in ("float32", "float64")]
+    out["crossover"] = forward_crossover(cache)
+    torch.cuda.synchronize()
+    return out
+
+
 def zero_counts():
     """Set every kernel's launch count to 0, just before a path is driven."""
     from mmidv1_tpu_torch.ops import (fused_adjoint, fused_forward_ckpt,
                                       fused_objective)
-    fused_objective.launches = 0
-    fused_forward_ckpt.launches = 0
+    for fwd in (fused_objective, fused_forward_ckpt):
+        fwd.launches = 0
+        fwd.regime_calls = {1: 0, 2: 0}
     fused_adjoint.launches = 0
     fused_adjoint.kernel_launches = 0
     fused_adjoint.regime_calls = {1: 0, 2: 0}
@@ -522,6 +834,8 @@ def read_counts(path, B, crossover):
     row = next(r for r in crossover if r["B"] == B and r["dtype"] == "float32")
     regime = row["picked"]
     counts = dict(k1=fused_objective.launches, k2=fused_forward_ckpt.launches,
+                  k1_regime_calls=dict(fused_objective.regime_calls),
+                  k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
                   k3=fused_adjoint.launches,
                   k3_kernels=fused_adjoint.kernel_launches,
                   k3_regime_calls=dict(fused_adjoint.regime_calls),
@@ -533,10 +847,25 @@ def read_counts(path, B, crossover):
         fail(f"{path}: K3 calls by regime and kernels {counts}, expected all "
              f"in regime {regime} at {counts['k3_kernels_per_call']} kernels "
              f"a call")
+    fwd_regime = forward_pick(B)
+    if counts["k2_regime_calls"] != {fwd_regime: counts["k2"],
+                                     3 - fwd_regime: 0}:
+        fail(f"{path}: K2 calls by regime {counts['k2_regime_calls']}, expected "
+             f"all {counts['k2']} in regime {fwd_regime}")
+    counts["k2_regime"] = fwd_regime
     print(f"[{path}] K3: {counts['k3']} calls, all in regime {regime}, "
           f"{counts['k3_kernels']} kernels = {counts['k3_kernels_per_call']} a "
-          f"call; K2 {counts['k2']} launches, K1 {counts['k1']}", flush=True)
+          f"call; K2 {counts['k2']} launches, all {REGIMES[fwd_regime]}; K1 "
+          f"{counts['k1']} ({counts['k1_regime_calls']})", flush=True)
     return counts
+
+
+def forward_pick(B):
+    """The regime ``choose_forward_regime`` picks for ``B`` chains here."""
+    import torch
+    from mmidv1_tpu_torch.ops.sepaihrd_fused import choose_forward_regime
+    return choose_forward_regime(
+        B, torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def mala_path(path, vg, pipe, n_chains, iterations, crossover):
@@ -656,6 +985,7 @@ def k3_phases(cache):
 
 def main():
     k3_only = "--k3" in sys.argv[1:]
+    fwd_only = "--fwd" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -701,22 +1031,35 @@ def main():
                                                 "sepaihrd_adjoint.ptxas.txt"))
 
     cache = {}
+    if fwd_only:
+        results["forward"] = forward_phases(cache, _build.BUILD_DIR)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_fwd.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --fwd: K1 and K2 held and timed in both regimes; "
+              "run without arguments for the whole check", flush=True)
+        return 0
     if k3_only:
         k3_phases(cache)
         print("chip_smoke --k3: K3 held and timed; run without arguments for "
               "the whole check", flush=True)
         return 0
 
+    # 2b. the forward kernels in both regimes
+    fwd = results["forward"] = forward_phases(cache, _build.BUILD_DIR)
+
     # 3. kernel vs plain version on the card
     from mmidv1_tpu_torch.ops import fused_objective
     cases = []
-    for dtype_name, tol in (("float64", 1e-10), ("float32", 2e-4)):
+    for dtype_name, tol in FWD_TOL.items():
         for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
             cases.append(compare(f"{dtype_name} {tableau}@{substeps} B=8192",
                                  8192, dtype_name, tableau, substeps, tol,
                                  cache, seed=len(cases)))
     main_shape = compare("float32 dopri5@4 B=1024 (main-path MH shape)", 1024,
-                         "float32", "dopri5", 4, 2e-4, cache, seed=99)
+                         "float32", "dopri5", 4, FWD_TOL["float32"], cache,
+                         seed=99)
     results["compare"] = cases + [main_shape]
 
     # 4. the float64 MAP anchor through the kernel
@@ -742,7 +1085,7 @@ def main():
 
     # 5. the PSO -> AM-MH path, counted
     from mmidv1_tpu_torch.cli.calibrate_spain import run_calibration
-    fused_objective.launches = 0
+    zero_counts()
     summary = run_calibration(
         algorithm="psomcmc", chains=1024, pso_particles=512, pso_iters=5,
         mcmc_iters=100, thinning=5, burn_in=20, substeps=4, tableau="dopri5",
@@ -750,22 +1093,30 @@ def main():
         out=os.path.join(HERE, "chiprun_out", "chip_smoke_calibration"),
         log=lambda m: print(f"[main] {m}", flush=True))
     launches = fused_objective.launches
-    results["main_path"] = dict(summary, launches=launches)
+    k1_by_regime = dict(fused_objective.regime_calls)
+    k1_regime = forward_pick(1024)
+    results["main_path"] = dict(summary, launches=launches,
+                                k1_regime_calls=k1_by_regime,
+                                k1_regime=k1_regime)
     # 1 initial + 2 opposition + 5 PSO + 1 MH init + 100 MH + 1 float64
-    if launches < 5 + 100:
-        fail(f"main path launched the kernel {launches} times")
+    if launches < 5 + 100 or sum(k1_by_regime.values()) != launches or \
+            k1_by_regime[k1_regime] < 101:
+        fail(f"main path launched the kernel {launches} times, by regime "
+             f"{k1_by_regime}: the 101 MH calls at 1024 chains belong to "
+             f"regime {k1_regime}")
     best, init = summary["best_logl"], summary["initial_logl"]
     if not (abs(best) < float("inf") and best >= init):
         fail(f"best log-likelihood {best} is not finite and >= initial {init}")
     if not abs(summary["best_logl_float64"]) < float("inf"):
         fail("float64 re-selection is not finite")
-    print(f"[main] launches {launches}; best logL {best:.6e} >= initial "
+    print(f"[main] launches {launches}, by regime {k1_by_regime} (the rule picks "
+          f"{REGIMES[k1_regime]} at 1024 chains); best logL {best:.6e} >= initial "
           f"{init:.6e}; {summary['chain_steps_per_s']:.4e} chain-steps/s "
           f"(AM-MH, 1024 chains, float32) on {card}", flush=True)
 
     # 6. K2 vs its plain version
     k2_cases = []
-    for dtype_name, tol in (("float64", 1e-10), ("float32", 2e-4)):
+    for dtype_name, tol in FWD_TOL.items():
         for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
             k2_cases.append(compare_k2(f"{dtype_name} {tableau}@{substeps} B=8192",
                                        8192, dtype_name, tableau, substeps, tol,
@@ -831,6 +1182,30 @@ def main():
     if main32["k3_regime"] != k3_regime:
         fail(f"K3 was timed in regime {main32['k3_regime']} but the NUTS path "
              f"ran regime {k3_regime}")
+    if main32["k2_regime"] != nuts_launches["k2_regime"] or \
+            head["regime"] != k1_regime:
+        fail(f"K2 / K1 were timed in regimes {main32['k2_regime']} / "
+             f"{head['regime']} but their paths ran {nuts_launches['k2_regime']}"
+             f" / {k1_regime}")
+
+    def fcase(B, dtype_name):
+        return next(c for c in fwd["cases"]
+                    if c["B"] == B and c["dtype"] == dtype_name)
+
+    def chain_keys(bounds, ms, clock_mhz):
+        """The chain bound beside the roofline, and the time per stage."""
+        ns = ms * 1e6 / bounds["dependent_stages"]
+        return dict(chain_bound_ms=bounds["chain_bound_ms"],
+                    design_bound_ms=bounds["design_bound_ms"],
+                    dependent_stages=bounds["dependent_stages"],
+                    ns_per_stage=ns, cycles_per_stage=ns * clock_mhz / 1e3,
+                    sm_clock_mhz=clock_mhz)
+
+    def by_regime(kname):
+        return {f"B={c['B']} {c['dtype']}": {
+            name: {k: v for k, v in c[kname][name].items() if k != "case"}
+            for name in REGIMES.values()} for c in fwd["cases"]}
+
     kernels = [{
         "name": "sepaihrd_fused", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_fused.cu",
@@ -840,6 +1215,14 @@ def main():
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
+        "regime": head["regime"], "kernels_per_call": 1,
+        "launches_by_regime": k1_by_regime,
+        **chain_keys(fcase(1024, "float32")["K1"]["bounds"], head["ms"],
+                     fwd["clock_mhz"]),
+        "by_regime": by_regime("K1"),
+        "crossover": [{k: r[k] for k in ("B", "dtype", "picked", "K1_split_ms",
+                                         "K1_wide_ms")}
+                      for r in fwd["crossover"]],
         "shape": "B=1024 float32 dopri5@4",
         "configs": [{k: c[k] for k in ("case", "max_rel_err", "max_abs_err",
                                        "ms", "plain_ms", "bound_ms", "bound_by")}
@@ -854,6 +1237,18 @@ def main():
         "ms": main32["k2_ms"], "plain_ms": main32["k2_plain_ms"],
         "bound_ms": main32["k2_bound"]["bound_ms"],
         "bound_by": main32["k2_bound"]["bound_by"], "library_ms": None,
+        "regime": main32["k2_regime"], "kernels_per_call": 1,
+        "launches_by_regime": nuts_launches["k2_regime_calls"],
+        **chain_keys(fcase(64, "float32")["K2"]["bounds"], main32["k2_ms"],
+                     fwd["clock_mhz"]),
+        "by_regime": by_regime("K2"),
+        "crossover": [{k: r[k] for k in ("B", "dtype", "picked", "K2_split_ms",
+                                         "K2_wide_ms")}
+                      for r in fwd["crossover"]],
+        "paths": {name: {k: c[k] for k in ("k2", "k2_regime_calls")}
+                  for name, c in (("nuts B=64", nuts_launches),
+                                  ("mala B=64", mala),
+                                  ("mala B=1024", mala_wide))},
         "shape": "B=64 float32 dopri5@4 CLAMP",
         "configs": [main64["k2_check"]] + k2_cases}, {
         "name": "sepaihrd_adjoint", "route": "cuda",

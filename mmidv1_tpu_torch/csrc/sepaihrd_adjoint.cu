@@ -6,9 +6,15 @@
 // Replace the Pallas TPU kernels mmidv1_tpu/ops/sepaihrd_adjoint.py
 // `_fwd_call` (body `_make_fwd_kernel`) and `_bwd_call` (body
 // `_make_bwd_kernel`), and compute what they compute:
-//   K2: K1's forward (sepaihrd_fused.cu) on the R-dropped state, plus the
-//       PRE-reset day-start state at every day t with t % 24 == 0, into
-//       ckpt (n_chunks, 10, 4, B), chains last.
+//   K2: K1's forward on the R-dropped state, plus the PRE-reset day-start
+//       state at every day t with t % 24 == 0, into ckpt (n_chunks, 10, 4,
+//       B), chains last. Its kernels are K1's with the checkpoint stores
+//       switched on, in sepaihrd_forward.cuh: that header has its two
+//       bounds (the roofline and the chain of 8125 dependent RK stages) and
+//       its two regimes (split: the infection subsystem on producer warps,
+//       the linear rows, the fold and their half of each checkpoint on
+//       consumer warps behind a shared-memory ring; wide: one thread per
+//       (chain, age)). K3 reads ll and ckpt the same from either.
 //   K3: from the checkpoints and the cotangent g (B,), dLL/dy0 (11, 4, B)
 //       (R row 0), dLL/dagevec (8, 4, B), dLL/dscal (7, B) and dLL/dbeff
 //       (n_runs, B). The days are swept backward: the fold adjoint
@@ -23,12 +29,12 @@
 //       x > 0, 1/2 for x == 0, 0 for x < 0. The Kahan compensation
 //       transposes as the plain sum (dLL/dterm = 1).
 //
-// What bounds them: arithmetic in the roofline's terms (K2 ~3.9e6 flop per
-// chain at dopri5@4 over 325 days, K3's function ~1.0e7: one re-integration
-// from the checkpoints plus the transpose of every substep), but at the
-// chain counts the samplers use the time is the latency of the dependency
-// chain, one RK stage after the other, so K3 is built to shorten that chain
-// and to fit its registers. `op_count_adjoint` in ops/sepaihrd_adjoint.py
+// What bounds K3: arithmetic in the roofline's terms (its function is
+// ~1.0e7 flop per chain at dopri5@4 over 325 days: one re-integration from
+// the checkpoints plus the transpose of every substep), but at the chain
+// counts the samplers use the time is the latency of the dependency chain,
+// one RK stage after the other, so K3 is built to shorten that chain and to
+// fit its registers. `op_count_adjoint` in ops/sepaihrd_adjoint.py
 // counts the function's least arithmetic and each regime's own.
 //
 // K3's design: stages that each expose the parallelism they have, launched
@@ -81,13 +87,12 @@
 // rounding only. Stage inputs are computed from the substep's start with
 // every first stage evaluated afresh, as the Pallas adjoint does.
 
-#include "sepaihrd_common.cuh"
+#include "sepaihrd_forward.cuh"
 
 namespace {
 
 using namespace sepaihrd;
 
-constexpr int kChunk = 24;       // days per checkpoint (L_CHUNK)
 constexpr int kRhsRows = 7;      // S E P A I H ICU: the rows the RHS reads
 constexpr int kStageRows = kRhsRows + 1;         // regime 1 keeps lraw too
 constexpr int kSeam = kRhsRows * kAges;          // non-zero lambda entries
@@ -248,60 +253,6 @@ __device__ __forceinline__ int run_of(int t, int n_runs, const int* run_start) {
   int r = 0;
   while (r + 1 < n_runs && run_start[r + 1] <= t) ++r;
   return r;
-}
-
-template <typename T, int S>
-__global__ void __launch_bounds__(kThreads)
-sepaihrd_fwd_ckpt_kernel(const T* __restrict__ y0, const T* __restrict__ agevec,
-                         const T* __restrict__ scal, const T* __restrict__ beff,
-                         const T* __restrict__ obs, const T* __restrict__ valid,
-                         T* __restrict__ out, T* __restrict__ ckpt, int B,
-                         int T_obs, int runup_offset, int substeps, int fsal,
-                         int n_runs, const Consts<T> cst) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int age = tid & (kAges - 1);
-  const bool active = (tid >> 2) < B;
-  const int chain = active ? (tid >> 2) : B - 1;
-  const size_t AB = static_cast<size_t>(kAges) * B;
-  const size_t at = static_cast<size_t>(age) * B + chain;
-  const T eps = T(1e-10);
-  const Lane<T> q = load_lane(agevec, scal, cst, age, chain, B);
-
-  T y[kCarried];
-#pragma unroll
-  for (int c = 0; c < kCarried; ++c) {
-    const int row = c < 7 ? c : c + 1;
-    y[c] = y0[row * AB + at];
-  }
-
-  T ll = T(0), comp = T(0);
-  if (runup_offset == 0) {
-    ll = ll + age_sum(poisson_row(obs, valid, 0, age, eps, eps, eps));
-  }
-
-  for (int r = 0; r < n_runs; ++r) {
-    const T beta = beff[static_cast<size_t>(r) * B + chain];
-    const int t_end = cst.run_start[r] + cst.run_count[r];
-    for (int t = cst.run_start[r]; t < t_end; ++t) {
-      if (t % kChunk == 0 && active) {
-        // the PRE-reset day-start state: K3 applies the same reset
-        T* dst = ckpt + static_cast<size_t>(t / kChunk) * kCarried * AB + at;
-#pragma unroll
-        for (int c = 0; c < kCarried; ++c) dst[c * AB] = y[c];
-      }
-      advance_day<T, S>(y, q, beta, substeps, fsal, cst);
-      const int j = t + 1 - runup_offset;
-      if (j >= 0 && j < T_obs) {
-        const T term = age_sum(poisson_row(obs, valid, j, age, relu(y[7]) + eps,
-                                           relu(y[8]) + eps, relu(y[9]) + eps));
-        const T contrib = term - comp;
-        const T ll_new = ll + contrib;
-        comp = (ll_new - ll) - contrib;
-        ll = ll_new;
-      }
-    }
-  }
-  if (active && age == 0) out[chain] = ll;
 }
 
 // Where the scratch of the days stage keeps the state after substep `sub`
@@ -761,33 +712,6 @@ bool check(int B, int T_obs, int runup_offset, int substeps, int n_runs,
   return n_chunks == (n + kChunk - 1) / kChunk;
 }
 
-template <typename T>
-int launch_fwd(const T* y0, const T* agevec, const T* scal, const T* beff,
-               const T* obs, const T* valid, T* out, T* ckpt, int B, int T_obs,
-               int runup_offset, int substeps, int n_stages, int fsal,
-               const double* a_host, const double* b_host, const double* M_host,
-               int n_runs, const int* run_start, const int* run_count,
-               int n_chunks, void* stream) {
-  Consts<T> c;
-  int n_intervals = 0;
-  if (!check<T>(B, T_obs, runup_offset, substeps, n_runs, run_start, run_count,
-                n_chunks, &n_intervals) ||
-      !make_consts(c, n_stages, a_host, b_host, M_host, n_runs, run_start,
-                   run_count)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long threads_total = static_cast<long long>(kAges) * B;
-  const int blocks = static_cast<int>((threads_total + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MMIDV1_LAUNCH(NS)                                                     \
-  sepaihrd_fwd_ckpt_kernel<T, NS><<<blocks, kThreads, 0, s>>>(                \
-      y0, agevec, scal, beff, obs, valid, out, ckpt, B, T_obs, runup_offset,  \
-      substeps, fsal, n_runs, c)
-  SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
-#undef MMIDV1_LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K3's scratch, in values of T, for one regime: where each stage's buffer
 // starts and how long they are together.
 struct ScratchPlan {
@@ -943,6 +867,7 @@ int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
 
 extern "C" {
 
+// K2. regime 1: split (few chains); 2: wide
 int sepaihrd_fwd_ckpt_f32(const float* y0, const float* agevec,
                           const float* scal, const float* beff,
                           const float* obs, const float* valid, float* out,
@@ -951,11 +876,11 @@ int sepaihrd_fwd_ckpt_f32(const float* y0, const float* agevec,
                           const double* a_host, const double* b_host,
                           const double* M_host, int n_runs,
                           const int* run_start, const int* run_count,
-                          int n_chunks, void* stream) {
-  return launch_fwd<float>(y0, agevec, scal, beff, obs, valid, out, ckpt, B,
-                           T_obs, runup_offset, substeps, n_stages, fsal,
-                           a_host, b_host, M_host, n_runs, run_start,
-                           run_count, n_chunks, stream);
+                          int n_chunks, int regime, void* stream) {
+  return sepaihrd::launch_forward<float, true>(
+      y0, agevec, scal, beff, obs, valid, out, ckpt, B, T_obs, runup_offset,
+      substeps, n_stages, fsal, a_host, b_host, M_host, n_runs, run_start,
+      run_count, n_chunks, regime, stream);
 }
 
 int sepaihrd_fwd_ckpt_f64(const double* y0, const double* agevec,
@@ -966,11 +891,11 @@ int sepaihrd_fwd_ckpt_f64(const double* y0, const double* agevec,
                           const double* a_host, const double* b_host,
                           const double* M_host, int n_runs,
                           const int* run_start, const int* run_count,
-                          int n_chunks, void* stream) {
-  return launch_fwd<double>(y0, agevec, scal, beff, obs, valid, out, ckpt, B,
-                            T_obs, runup_offset, substeps, n_stages, fsal,
-                            a_host, b_host, M_host, n_runs, run_start,
-                            run_count, n_chunks, stream);
+                          int n_chunks, int regime, void* stream) {
+  return sepaihrd::launch_forward<double, true>(
+      y0, agevec, scal, beff, obs, valid, out, ckpt, B, T_obs, runup_offset,
+      substeps, n_stages, fsal, a_host, b_host, M_host, n_runs, run_start,
+      run_count, n_chunks, regime, stream);
 }
 
 // K3. regime 1: days, stages, chunk, compose over all chunks at once;

@@ -33,6 +33,7 @@ XLA objective would pass half at ``cv == 0``; the force of infection's
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -44,9 +45,11 @@ from ..calibration.param_space import REFLECT, ParameterSpace
 from ..data.calibration_data import CalibrationData
 from ..ode.tableaus import get_tableau
 from ..params import SEPAIHRDParams
-from .sepaihrd_fused import (N_AGES, _check_inputs, build_objective_fused,
-                             check_schedule, check_tensors, host_consts,
-                             op_count, plain_days, plain_forward)
+from .sepaihrd_fused import (N_AGES, SPLIT, WIDE, _check_inputs,
+                             _launch_forward, build_objective_fused,
+                             check_regime, check_schedule, check_tensors,
+                             host_consts, op_count, plain_days, plain_forward,
+                             plain_forward_split)
 
 L_CHUNK = 24        # days per checkpoint (csrc/sepaihrd_adjoint.cu kChunk)
 MAX_SUBSTEPS = 16   # K3's scratch holds the state after every substep
@@ -62,16 +65,31 @@ def num_chunks(n_intervals: int) -> int:
     return -(-n_intervals // L_CHUNK)
 
 
-def _lib():
+@functools.lru_cache(maxsize=None)
+def _adjoint_fns():
+    """``(library, scratch_len, K3's entry point by value size)``, bound
+    once."""
     from . import _build
 
-    return _build.load("sepaihrd_adjoint")
+    lib = _build.load("sepaihrd_adjoint")
+    need = lib.sepaihrd_adjoint_scratch_len
+    need.restype = ctypes.c_longlong
+    need.argtypes = [ctypes.c_int] * 7
+    fns = {4: lib.sepaihrd_adjoint_f32, 8: lib.sepaihrd_adjoint_f64}
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 4
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lib.sepaihrd_adjoint_error_string.restype = ctypes.c_char_p
+    lib.sepaihrd_adjoint_error_string.argtypes = [ctypes.c_int]
+    return lib, need, fns
 
 
 def _raise_on(lib, err: int, what: str):
     if err != 0:
-        lib.sepaihrd_adjoint_error_string.restype = ctypes.c_char_p
-        lib.sepaihrd_adjoint_error_string.argtypes = [ctypes.c_int]
         msg = lib.sepaihrd_adjoint_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
@@ -86,15 +104,18 @@ def fused_forward_ckpt(y0: torch.Tensor, agevec: torch.Tensor,
                        scal: torch.Tensor, beff: torch.Tensor,
                        obs: torch.Tensor, valid: torch.Tensor, M, *,
                        run_start, run_count, runup_offset: int,
-                       substeps: int = 4, tableau: str = "dopri5"):
+                       substeps: int = 4, tableau: str = "dopri5",
+                       regime: Optional[int] = None):
     """``(ll (B,), ckpt (n_chunks, 10, 4, B))``: the inputs and the
     log-likelihood of :func:`.sepaihrd_fused.fused_objective`, and the
     pre-reset day-start state of every ``L_CHUNK``-th day. CPU inputs run
     the plain version; CUDA inputs launch K2 on the current stream, or
-    raise."""
-    B, n_runs, T_obs = _check_inputs(y0, agevec, scal, beff, obs, valid, M,
-                                     run_start, run_count, runup_offset,
-                                     substeps)
+    raise. ``regime`` forces K2's split (1) or wide (2) regime past
+    :func:`.sepaihrd_fused.choose_forward_regime`, for tests and timing."""
+    B, _n_runs, _T_obs = _check_inputs(y0, agevec, scal, beff, obs, valid, M,
+                                       run_start, run_count, runup_offset,
+                                       substeps)
+    check_regime(regime)
     kw = dict(run_start=run_start, run_count=run_count,
               runup_offset=runup_offset, substeps=substeps, tableau=tableau)
     if y0.device.type == "cpu":
@@ -102,32 +123,16 @@ def fused_forward_ckpt(y0: torch.Tensor, agevec: torch.Tensor,
                                             M, **kw)
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
-    lib = _lib()
-    S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
-                                           run_count)
-    n_chunks = num_chunks(int(sum(run_count)))
-    out = torch.empty(B, dtype=y0.dtype, device=y0.device)
-    ckpt = torch.empty((n_chunks, _CARRIED, N_AGES, B), dtype=y0.dtype,
-                       device=y0.device)
-    with torch.cuda.device(y0.device):
-        stream = torch.cuda.current_stream(y0.device).cuda_stream
-        fn = lib.sepaihrd_fwd_ckpt_f32 if y0.dtype == torch.float32 \
-            else lib.sepaihrd_fwd_ckpt_f64
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-        err = fn(y0.data_ptr(), agevec.data_ptr(), scal.data_ptr(),
-                 beff.data_ptr(), obs.data_ptr(), valid.data_ptr(),
-                 out.data_ptr(), ckpt.data_ptr(), B, T_obs, int(runup_offset),
-                 int(substeps), S, fsal, a, b, m, n_runs, rs, rc, n_chunks,
-                 stream)
-    _raise_on(lib, err, "sepaihrd_fwd_ckpt")
-    fused_forward_ckpt.launches += 1
+    ckpt = torch.empty((num_chunks(int(sum(run_count))), _CARRIED, N_AGES, B),
+                       dtype=y0.dtype, device=y0.device)
+    out = _launch_forward(fused_forward_ckpt, y0, agevec, scal, beff, obs,
+                          valid, M, **kw, ckpt=ckpt, regime=regime)
     return out, ckpt
 
 
-fused_forward_ckpt.launches = 0
+fused_forward_ckpt.launches = 0     # calls that launched K2 (one kernel each)
+fused_forward_ckpt.regime = None    # the regime of the last call
+fused_forward_ckpt.regime_calls = {SPLIT: 0, WIDE: 0}   # those calls by regime
 
 
 def fused_forward_ckpt_reference(y0, agevec, scal, beff, obs, valid, M, *,
@@ -140,6 +145,20 @@ def fused_forward_ckpt_reference(y0, agevec, scal, beff, obs, valid, M, *,
                          runup_offset=runup_offset, substeps=substeps,
                          tableau=tableau, chunk=L_CHUNK,
                          incidence=_strict_incidence)
+
+
+def fused_forward_ckpt_split_reference(y0, agevec, scal, beff, obs, valid, M,
+                                       *, run_start, run_count,
+                                       runup_offset: int, substeps: int = 4,
+                                       tableau: str = "dopri5"):
+    """The plain model of K2's split regime
+    (:func:`.sepaihrd_fused.plain_forward_split`): equal to
+    :func:`fused_forward_ckpt_reference` bit for bit."""
+    return plain_forward_split(y0, agevec, scal, beff, obs, valid, M,
+                               run_start=run_start, run_count=run_count,
+                               runup_offset=runup_offset, substeps=substeps,
+                               tableau=tableau, chunk=L_CHUNK,
+                               incidence=_strict_incidence)
 
 
 def _check_adjoint_inputs(agevec, scal, beff, obs, valid, ckpt, g, M,
@@ -227,16 +246,13 @@ def _launch_adjoint(agevec, scal, beff, obs, valid, ckpt, g, M, *, run_start,
     """Launch K3 on validated CUDA inputs: ``((dy0, dagevec, dscal, dbeff),
     regime, kernels launched)``. ``regime`` forces 1 or 2 past
     :func:`choose_regime`; only the card checks pass it."""
-    lib = _lib()
+    lib, need, fns = _adjoint_fns()
     S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
                                            run_count)
     dev, dtype = agevec.device, agevec.dtype
     B, n_runs, n_chunks = agevec.shape[-1], len(run_start), ckpt.shape[0]
     n_intervals = int(sum(run_count))
     elem = torch.finfo(dtype).bits // 8
-    need = lib.sepaihrd_adjoint_scratch_len
-    need.restype = ctypes.c_longlong
-    need.argtypes = [ctypes.c_int] * 7
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -256,15 +272,7 @@ def _launch_adjoint(agevec, scal, beff, obs, valid, ckpt, g, M, *, run_start,
         dscal = torch.empty((7, B), dtype=dtype, device=dev)
         dbeff = torch.empty((n_runs, B), dtype=dtype, device=dev)
         n_kernels = ctypes.c_int(0)
-        fn = lib.sepaihrd_adjoint_f32 if dtype == torch.float32 \
-            else lib.sepaihrd_adjoint_f64
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] * 4
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-        err = fn(agevec.data_ptr(), scal.data_ptr(), beff.data_ptr(),
+        err = fns[elem](agevec.data_ptr(), scal.data_ptr(), beff.data_ptr(),
                  obs.data_ptr(), valid.data_ptr(), ckpt.data_ptr(),
                  g.data_ptr(), dy0.data_ptr(), dagevec.data_ptr(),
                  dscal.data_ptr(), dbeff.data_ptr(), scratch.data_ptr(),

@@ -2,9 +2,9 @@
 
 Port of ``mmidv1_tpu/ops/sepaihrd_pallas.py`` (``period_runs_for_grid``,
 ``shared_prep``, ``fused_objective``, ``build_objective_pallas``). The kernel
-is hand-written CUDA C++ for Hopper, ``csrc/sepaihrd_fused.cu`` (its header
-says what bounds it and how it is laid out), built by :mod:`._build` and
-called through ctypes.
+is hand-written CUDA C++ for Hopper, ``csrc/sepaihrd_fused.cu`` over
+``csrc/sepaihrd_forward.cuh`` (whose header says what bounds it and how its
+two regimes are laid out), built by :mod:`._build` and called through ctypes.
 
 Layout (chains last, so neighbouring threads read neighbouring addresses):
 
@@ -18,11 +18,16 @@ Layout (chains last, so neighbouring threads read neighbouring addresses):
 :func:`fused_objective` dispatches on the device of its inputs alone: CPU
 tensors go to :func:`fused_objective_reference` (the plain PyTorch version),
 CUDA tensors to the kernel. There is no fallback from one to the other.
+On the card :func:`choose_forward_regime` picks the kernel's regime from the
+chain count: the cascade split over producer and consumer warps for few
+chains (:func:`plain_forward_split` is its plain model), one thread per
+(chain, age) for many.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -109,10 +114,18 @@ def _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
 
 
 def check_schedule(M, run_start, run_count, runup_offset, substeps, T_obs):
-    """Validate the host constants the kernels take besides the tensors."""
+    """Validate the host constants the kernels take besides the tensors
+    (once per distinct set: a sampler passes the same ones at every call)."""
+    _check_schedule(np.shape(M), tuple(run_start), tuple(run_count),
+                    int(runup_offset), int(substeps), int(T_obs))
+
+
+@functools.lru_cache(maxsize=64)
+def _check_schedule(M_shape, run_start, run_count, runup_offset, substeps,
+                    T_obs):
     n_runs = len(run_start)
-    if np.shape(M) != (N_AGES, N_AGES):
-        raise ValueError(f"M has shape {np.shape(M)}, expected (4, 4)")
+    if M_shape != (N_AGES, N_AGES):
+        raise ValueError(f"M has shape {M_shape}, expected (4, 4)")
     if len(run_count) != n_runs or n_runs < 1:
         raise ValueError("run_start and run_count must be equal, non-empty")
     ends = np.cumsum(run_count)
@@ -123,70 +136,173 @@ def check_schedule(M, run_start, run_count, runup_offset, substeps, T_obs):
     if n_intervals + 1 - runup_offset != T_obs or not 0 <= runup_offset <= n_intervals:
         raise ValueError(f"{n_intervals} intervals with runup_offset "
                          f"{runup_offset} do not end on observation row {T_obs - 1}")
-    if int(substeps) < 1:
+    if substeps < 1:
         raise ValueError("substeps must be >= 1")
+
+
+SPLIT, WIDE = 1, 2      # the forward kernels' regimes (csrc/sepaihrd_forward.cuh)
+# the split regime up to this many chains an SM (2 blocks of 8 chains)
+SPLIT_CHAINS_PER_SM = 16
+# The longest mean cycle of the recurrence's dependency graph, counted from
+# the kernel source (the header of csrc/sepaihrd_forward.cuh writes it out):
+# lam(i) -> kE(i) -> uE(i+1) -> kP(i+1) -> uP(i+2) -> lam(i+2), 17 arithmetic
+# instructions and one shuffle round over two stages. Cycles from instruction
+# latencies (4 a float32 and 8 a float64 arithmetic instruction, 24 a
+# shuffle; from published tables, not measured).
+CHAIN_INSTRUCTIONS = 17
+CHAIN_STAGES = 2
+_ARITH_CYCLES = {4: 4, 8: 8}
+_SHUFFLE_CYCLES = 24
+
+
+def chain_cycles(elem: int) -> float:
+    """Cycles a dependent RK stage that the recurrence's longest dependency
+    cycle takes at least, for values of ``elem`` bytes."""
+    return (CHAIN_INSTRUCTIONS * _ARITH_CYCLES[elem]
+            + _SHUFFLE_CYCLES) / CHAIN_STAGES
+
+
+def dependent_stages(tableau: str, substeps: int, n_intervals: int) -> int:
+    """RHS evaluations of one chain, each of which needs the one before."""
+    tab = get_tableau(tableau)
+    S = tab.stages
+    return n_intervals * (1 + substeps * (S - 1) if tab.fsal else substeps * S)
+
+
+def choose_forward_regime(B: int, sm_count: int) -> int:
+    """The regime of K1 and K2 for ``B`` chains on a card with ``sm_count``
+    SMs.
+
+    The split regime puts the infection subsystem of 8 chains on a warp of
+    its own and the rest of the model on a second one: fewer instructions on
+    the warp that sets the pace, at twice the warps. The wide regime runs
+    one thread per (chain, age) with all ten rows. Few chains leave the card
+    empty and only the time of one stage counts; many fill it and only the
+    arithmetic does. The split regime's time is flat while every warp has a
+    scheduler to itself (2 blocks an SM) and then steps up with the blocks
+    an SM; the constant comes from ``chip_smoke.py``'s ``[crossover-fwd]``
+    lines on an H100 with 132 SMs (PERF.md): in float32 and float64 alike
+    the split regime wins by 17 to 20 % up to B = 2048 (2 blocks an SM) and
+    loses at 3072 (3), so it is taken up to 2 blocks of 8 chains an SM,
+    B <= 2112 there."""
+    return SPLIT if B <= SPLIT_CHAINS_PER_SM * sm_count else WIDE
+
+
+def check_regime(regime):
+    if regime not in (None, SPLIT, WIDE):
+        raise ValueError(f"regime must be None, {SPLIT} (split) or {WIDE} "
+                         f"(wide), got {regime!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_fns(ckpt: bool):
+    """The forward kernels' C entry points by value size, bound once per
+    library: K1's (``ckpt`` False) or K2's."""
+    from . import _build
+
+    name = "sepaihrd_adjoint" if ckpt else "sepaihrd_fused"
+    lib = _build.load(name)
+    err = getattr(lib, f"{name}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    stem = "sepaihrd_fwd_ckpt" if ckpt else "sepaihrd_fused"
+    fns = {}
+    for elem, suffix in ((4, "f32"), (8, "f64")):
+        fn = getattr(lib, f"{stem}_{suffix}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * (8 if ckpt else 7)
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * (2 if ckpt else 1)
+                       + [ctypes.c_void_p])
+        fns[elem] = fn
+    return fns, err
+
+
+def _launch_forward(wrapper, y0, agevec, scal, beff, obs, valid, M, *,
+                    run_start, run_count, runup_offset, substeps, tableau,
+                    ckpt=None, regime=None):
+    """Launch K1 (``ckpt`` None) or K2 on validated CUDA inputs and count the
+    launch on ``wrapper`` (its ``launches``, ``regime``, ``regime_calls``):
+    the log-likelihoods ``(B,)``. ``regime`` None lets
+    :func:`choose_forward_regime` pick."""
+    dev, dtype = y0.device, y0.dtype
+    B, elem = y0.shape[-1], y0.element_size()
+    S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
+                                           run_count)
+    fns, error_string = _forward_fns(ckpt is not None)
+    out = torch.empty(B, dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        if regime is None:
+            regime = choose_forward_regime(
+                B, torch.cuda.get_device_properties(dev).multi_processor_count)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        tail = (len(rs), rs, rc) + (() if ckpt is None else (ckpt.shape[0],)) \
+            + (int(regime), stream)
+        head = (y0.data_ptr(), agevec.data_ptr(), scal.data_ptr(),
+                beff.data_ptr(), obs.data_ptr(), valid.data_ptr(),
+                out.data_ptr()) + (() if ckpt is None else (ckpt.data_ptr(),))
+        err = fns[elem](*head, B, obs.shape[0], int(runup_offset),
+                        int(substeps), S, fsal, a, b, m, *tail)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+    wrapper.launches += 1
+    wrapper.regime = regime
+    wrapper.regime_calls[regime] += 1
+    return out
 
 
 def fused_objective(y0: torch.Tensor, agevec: torch.Tensor, scal: torch.Tensor,
                     beff: torch.Tensor, obs: torch.Tensor, valid: torch.Tensor,
                     M, *, run_start: Sequence[int], run_count: Sequence[int],
                     runup_offset: int, substeps: int = 4,
-                    tableau: str = "dopri5") -> torch.Tensor:
+                    tableau: str = "dopri5",
+                    regime: Optional[int] = None) -> torch.Tensor:
     """Log-likelihood per chain, ``(B,)``, of the fused solve + fold.
 
     ``M`` is the host (4, 4) baseline contact matrix; ``run_start`` /
     ``run_count`` tile the daily intervals into static schedule runs (row r
     of ``beff`` applies to run r). CPU inputs run the plain version; CUDA
-    inputs launch the kernel on the current stream, or raise."""
-    B, n_runs, T_obs = _check_inputs(y0, agevec, scal, beff, obs, valid, M,
-                                     run_start, run_count, runup_offset, substeps)
+    inputs launch the kernel on the current stream, or raise. ``regime``
+    forces the kernel's split (1) or wide (2) regime past
+    :func:`choose_forward_regime`, for tests and timing."""
+    _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
+                  runup_offset, substeps)
+    check_regime(regime)
+    kw = dict(run_start=run_start, run_count=run_count,
+              runup_offset=runup_offset, substeps=substeps, tableau=tableau)
     if y0.device.type == "cpu":
-        return fused_objective_reference(
-            y0, agevec, scal, beff, obs, valid, M, run_start=run_start,
-            run_count=run_count, runup_offset=runup_offset, substeps=substeps,
-            tableau=tableau)
+        return fused_objective_reference(y0, agevec, scal, beff, obs, valid, M,
+                                         **kw)
     if y0.device.type != "cuda":
         raise ValueError(f"unsupported device {y0.device}")
-
-    from . import _build
-
-    lib = _build.load("sepaihrd_fused")
-    S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
-                                           run_count)
-    out = torch.empty(B, dtype=y0.dtype, device=y0.device)
-    with torch.cuda.device(y0.device):
-        stream = torch.cuda.current_stream(y0.device).cuda_stream
-        fn = lib.sepaihrd_fused_f32 if y0.dtype == torch.float32 \
-            else lib.sepaihrd_fused_f64
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3)
-        err = fn(y0.data_ptr(), agevec.data_ptr(), scal.data_ptr(),
-                 beff.data_ptr(), obs.data_ptr(), valid.data_ptr(),
-                 out.data_ptr(), B, T_obs, int(runup_offset), int(substeps), S,
-                 fsal, a, b, m, n_runs, rs, rc, stream)
-    if err != 0:
-        lib.sepaihrd_fused_error_string.restype = ctypes.c_char_p
-        lib.sepaihrd_fused_error_string.argtypes = [ctypes.c_int]
-        msg = lib.sepaihrd_fused_error_string(err).decode()
-        raise RuntimeError(f"sepaihrd_fused kernel launch failed: {msg} ({err})")
-    fused_objective.launches += 1
-    return out
+    return _launch_forward(fused_objective, y0, agevec, scal, beff, obs, valid,
+                           M, **kw, regime=regime)
 
 
-fused_objective.launches = 0
+fused_objective.launches = 0        # calls that launched K1 (one kernel each)
+fused_objective.regime = None       # the regime of the last call
+fused_objective.regime_calls = {SPLIT: 0, WIDE: 0}   # those calls by regime
 
 
 def host_consts(tableau: str, substeps: int, M, run_start, run_count):
     """The kernels' host-side constants as ctypes arrays: ``(stages, fsal,
-    h*a (S*S), h*b (S), M (16), run_start, run_count)``."""
+    h*a (S*S), h*b (S), M (16), run_start, run_count)``, made once per
+    distinct set and kept (the kernels only read them)."""
+    return _host_consts(tableau, int(substeps),
+                        np.asarray(M, dtype=np.float64).tobytes(),
+                        tuple(run_start), tuple(run_count))
+
+
+@functools.lru_cache(maxsize=64)
+def _host_consts(tableau, substeps, M_bytes, run_start, run_count):
     tab = get_tableau(tableau)
     S, n_runs = tab.stages, len(run_start)
     h = 1.0 / substeps
     a = (ctypes.c_double * (S * S))(*[float(h * x) for x in tab.a.reshape(-1)])
     b = (ctypes.c_double * S)(*[float(h * x) for x in tab.b])
-    m = (ctypes.c_double * 16)(*[float(x) for x in np.asarray(M).reshape(-1)])
+    m = (ctypes.c_double * 16).from_buffer_copy(M_bytes)
     rs = (ctypes.c_int * n_runs)(*[int(x) for x in run_start])
     rc = (ctypes.c_int * n_runs)(*[int(x) for x in run_count])
     return S, int(tab.fsal), a, b, m, rs, rc
@@ -202,6 +318,20 @@ def fused_objective_reference(y0, agevec, scal, beff, obs, valid, M, *,
                           run_start=run_start, run_count=run_count,
                           runup_offset=runup_offset, substeps=substeps,
                           tableau=tableau)
+    return ll
+
+
+def fused_objective_split_reference(y0, agevec, scal, beff, obs, valid, M, *,
+                                    run_start, run_count, runup_offset: int,
+                                    substeps: int = 4,
+                                    tableau: str = "dopri5") -> torch.Tensor:
+    """The plain model of the kernel's split regime
+    (:func:`plain_forward_split`): equal to
+    :func:`fused_objective_reference` bit for bit."""
+    ll, _ = plain_forward_split(y0, agevec, scal, beff, obs, valid, M,
+                                run_start=run_start, run_count=run_count,
+                                runup_offset=runup_offset, substeps=substeps,
+                                tableau=tableau)
     return ll
 
 
@@ -222,6 +352,76 @@ def plain_forward(y0, agevec, scal, beff, obs, valid, M, *, run_start,
     return ll, (torch.stack(ckpts) if chunk else None)
 
 
+class _PlainModel:
+    """The SEPAIHRD right-hand side on the R-dropped state in eager PyTorch,
+    chains last, in the cascade's two halves as the kernels have it
+    (``rhs_up`` / ``rhs_down`` in csrc/sepaihrd_common.cuh), and the Poisson
+    row. ``rhs`` is both halves stacked."""
+
+    def __init__(self, agevec, scal, obs, valid, M):
+        self.Mt = torch.as_tensor(np.asarray(M, dtype=np.float64),
+                                  dtype=agevec.dtype, device=agevec.device)
+        self.agevec = agevec.unbind(0)                    # (4, B) each
+        self.scal = scal.unsqueeze(1).unbind(0)           # (1, B) each
+        self.obs, self.valid = obs, valid
+
+    def up(self, u, beta):
+        """d/dt of S E P A I from their own state ``u`` (5 rows)."""
+        a_, hinfN, p, hh, _icu, _dH, _dICU, dcomm = self.agevec
+        theta, sigma, gp, gA, gI, _gH, _gICU = self.scal
+        S_, E_, P_, A_, I_ = u[0], u[1], u[2], u[3], u[4]
+        ip = (P_ + A_ + theta * I_) * hinfN
+        lam = torch.sum(self.Mt[:, :, None] * ip[None, :, :], dim=1)
+        lam = sepaihrd.max0(beta * (a_ * lam))
+        fSE = lam * S_
+        fEP = sigma * E_
+        fPo = gp * P_
+        fPA = p * fPo
+        fPI = fPo - fPA
+        fIH = hh * I_
+        fIR = gI * I_
+        fIDc = dcomm * I_
+        return [-fSE, fSE - fEP, fEP - fPo, fPA - gA * A_,
+                fPI - (fIR + fIH + fIDc)]
+
+    def down(self, I_, z):
+        """d/dt of H ICU D CumH CumICU from I and their own state ``z``."""
+        _a, _hinfN, _p, hh, icu, dH, dICU, dcomm = self.agevec
+        gH, gICU = self.scal[5], self.scal[6]
+        H_, ICU_ = z[0], z[1]
+        fIH = hh * I_
+        fIDc = dcomm * I_
+        fHICU = icu * H_
+        dHrow = dH * H_
+        dICUrow = dICU * ICU_
+        return [fIH - (gH * H_ + dHrow + fHICU),
+                fHICU - (gICU * ICU_ + dICUrow), dHrow + dICUrow + fIDc,
+                fIH, fHICU]
+
+    def rhs(self, y, beta):
+        return torch.stack(self.up(y, beta) + self.down(y[4], y[5:]))
+
+    def poisson_row(self, j, incs):
+        return torch.sum(self.obs[j][..., None] * torch.log(incs)
+                         - self.valid[j][..., None] * incs, dim=(0, 1))
+
+    def fold_start(self, B, row0: bool):
+        """``(ll, comp)`` before the first day, with observation row 0's
+        constant term (no run-up) when ``row0``."""
+        dtype, dev = self.obs.dtype, self.obs.device
+        ll = torch.zeros(B, dtype=dtype, device=dev)
+        if row0:
+            ll = ll + self.poisson_row(0, torch.full(
+                (3, N_AGES, B), C.POISSON_EPSILON, dtype=dtype, device=dev))
+        return ll, torch.zeros(B, dtype=dtype, device=dev)
+
+    def fold_day(self, ll, comp, j, incs):
+        """Kahan-add day row ``j``'s Poisson term at incidences ``incs``."""
+        contrib = self.poisson_row(j, incs + C.POISSON_EPSILON) - comp
+        ll_new = ll + contrib
+        return ll_new, (ll_new - ll) - contrib
+
+
 def plain_days(y, agevec, scal, beff, obs, valid, M, *, run_start, run_count,
                runup_offset: int, substeps: int = 4, tableau: str = "dopri5",
                chunk: int = 0, incidence=sepaihrd.max0, days=None):
@@ -232,51 +432,16 @@ def plain_days(y, agevec, scal, beff, obs, valid, M, *, run_start, run_count,
     constant term when day 0 is included and there is no run-up), ``y_end``
     the pre-reset state after the last day and ``ckpts`` the list of
     day-start states at every ``t % chunk == 0`` (empty for ``chunk == 0``)."""
-    dtype, dev = y.dtype, y.device
     tab = get_tableau(tableau)
-    Mt = torch.as_tensor(np.asarray(M, dtype=np.float64), dtype=dtype, device=dev)
-    a_, hinfN, p, hh, icu, dH, dICU, dcomm = agevec.unbind(0)     # (4, B) each
-    theta, sigma, gp, gA, gI, gH, gICU = scal.unsqueeze(1).unbind(0)  # (1, B)
-    eps = C.POISSON_EPSILON
-
-    def rhs(y, beta):
-        S_, E_, P_, A_, I_, H_, ICU_ = y[:7].unbind(0)
-        ip = (P_ + A_ + theta * I_) * hinfN
-        lam = torch.sum(Mt[:, :, None] * ip[None, :, :], dim=1)
-        lam = sepaihrd.max0(beta * (a_ * lam))
-        fSE = lam * S_
-        fEP = sigma * E_
-        fPo = gp * P_
-        fPA = p * fPo
-        fPI = fPo - fPA
-        fIH = hh * I_
-        fIR = gI * I_
-        fIDc = dcomm * I_
-        fHICU = icu * H_
-        dHrow = dH * H_
-        dICUrow = dICU * ICU_
-        return torch.stack([
-            -fSE, fSE - fEP, fEP - fPo, fPA - gA * A_,
-            fPI - (fIR + fIH + fIDc), fIH - (gH * H_ + dHrow + fHICU),
-            fHICU - (gICU * ICU_ + dICUrow), dHrow + dICUrow + fIDc,
-            fIH, fHICU])
-
-    def poisson_row(j, incs):
-        return torch.sum(obs[j][..., None] * torch.log(incs)
-                         - valid[j][..., None] * incs, dim=(0, 1))
-
-    B = y.shape[-1]
+    model = _PlainModel(agevec, scal, obs, valid, M)
     first, last = days if days is not None else (0, int(sum(run_count)))
-    ll = torch.zeros(B, dtype=dtype, device=dev)
-    comp = torch.zeros(B, dtype=dtype, device=dev)
-    if runup_offset == 0 and first == 0:
-        ll = ll + poisson_row(0, torch.full((3, N_AGES, B), eps, dtype=dtype,
-                                            device=dev))
+    ll, comp = model.fold_start(y.shape[-1],
+                                  runup_offset == 0 and first == 0)
     T_obs = obs.shape[0]
     ckpts = []
     for r, (start, count) in enumerate(zip(run_start, run_count)):
         beta = beff[r]
-        f = lambda t, yy, beta=beta: rhs(yy, beta)
+        f = lambda t, yy, beta=beta: model.rhs(yy, beta)
         for t in range(max(start, first), min(start + count, last)):
             if chunk and t % chunk == 0:
                 ckpts.append(y)
@@ -285,12 +450,97 @@ def plain_days(y, agevec, scal, beff, obs, valid, M, *, run_start, run_count,
             y = _advance_interval_fixed(f, 0.0, 1.0, y, substeps, tab)
             j = t + 1 - runup_offset
             if 0 <= j < T_obs:
-                term = poisson_row(j, incidence(y[_DAY_ROWS]) + eps)
-                contrib = term - comp
-                ll_new = ll + contrib
-                comp = (ll_new - ll) - contrib
-                ll = ll_new
+                ll, comp = model.fold_day(ll, comp, j, incidence(y[_DAY_ROWS]))
     return ll, y, ckpts
+
+
+def _rk_substep(stage, y, h: float, tab, k_first=None):
+    """One RK step of size ``h`` with the operations of
+    ``ode.integrate._stages`` and ``_combine`` in their order; ``stage(i,
+    yi)`` gives the derivative at stage input ``yi``, and ``k_first`` takes
+    the place of stage 0 (FSAL). Returns ``(y_new, last stage)``."""
+    ks = [stage(0, y) if k_first is None else k_first]
+    for i in range(1, tab.stages):
+        yi = y
+        for j in range(i):
+            aij = float(tab.a[i, j])
+            if aij != 0.0:
+                yi = yi + (h * aij) * ks[j]
+        ks.append(stage(i, yi))
+    y_new = y
+    for i in range(tab.stages):
+        bi = float(tab.b[i])
+        if bi != 0.0:
+            y_new = y_new + (h * bi) * ks[i]
+    return y_new, ks[-1]
+
+
+def plain_forward_split(y0, agevec, scal, beff, obs, valid, M, *, run_start,
+                        run_count, runup_offset: int, substeps: int = 4,
+                        tableau: str = "dopri5", chunk: int = 0,
+                        incidence=sepaihrd.max0):
+    """A plain PyTorch model of the kernels' split regime: what
+    :func:`plain_forward` returns, computed as the producer and consumer
+    warps compute it.
+
+    The model is a cascade: S E P A I are closed under the right-hand side,
+    and H ICU D CumH CumICU are linear rows driven by I. So the upstream
+    five rows are integrated alone over all days, recording for every stage
+    of every substep the stage input of I (what the producer hands over);
+    then the downstream five rows are integrated from the record with the
+    same tableau (their own FSAL stage carried), reset each day, and folded.
+    Each row sees the same operations in the same order as in
+    :func:`plain_forward`, so the two agree bit for bit."""
+    tab = get_tableau(tableau)
+    model = _PlainModel(agevec, scal, obs, valid, M)
+    y = y0[_CARRIED]
+    h = 1.0 / substeps
+    days = [(r, t) for r, (start, count) in enumerate(zip(run_start, run_count))
+            for t in range(start, start + count)]
+
+    def substeps_of_day(stage_of, y):
+        """``substeps`` steps from ``y``; ``stage_of(sub)`` is the stage
+        function of substep ``sub``."""
+        k_last = None
+        for sub in range(substeps):
+            y, k_last = _rk_substep(stage_of(sub), y, h, tab,
+                                    k_last if tab.fsal else None)
+        return y
+
+    # the producer: S E P A I alone, I's stage inputs recorded
+    u, up_ckpts, record = y[:5], [], []
+    for r, t in days:
+        if chunk and t % chunk == 0:
+            up_ckpts.append(u)
+        day = [dict() for _ in range(substeps)]
+
+        def stage_of(sub, beta=beff[r], day=day):
+            def stage(i, ui):
+                day[sub][i] = ui[4]
+                return torch.stack(model.up(ui, beta))
+            return stage
+
+        u = substeps_of_day(stage_of, u)
+        record.append(day)
+
+    # the consumer: the linear rows from the record, the reset and the fold
+    z, down_ckpts = y[5:], []
+    ll, comp = model.fold_start(y.shape[-1], runup_offset == 0)
+    for (r, t), day in zip(days, record):
+        if chunk and t % chunk == 0:
+            down_ckpts.append(z)
+        z = z.clone()
+        z[2:] = 0.0
+
+        def stage_of(sub, day=day):
+            return lambda i, zi: torch.stack(model.down(day[sub][i], zi))
+
+        z = substeps_of_day(stage_of, z)
+        j = t + 1 - runup_offset
+        if 0 <= j < obs.shape[0]:
+            ll, comp = model.fold_day(ll, comp, j, incidence(z[2:]))
+    ckpts = [torch.cat([a, b]) for a, b in zip(up_ckpts, down_ckpts)]
+    return ll, (torch.stack(ckpts) if chunk else None)
 
 
 def op_count(tableau: str, substeps: int, n_intervals: int, n_obs_days: int) -> int:

@@ -13,12 +13,19 @@ the kernel: input validation, dispatch by device, and the op count.
 Tolerances: in float64 the kernel and the plain version differ only by FMA
 contraction and summation order, rtol 1e-10 over a 35-day solve; in float32
 the day terms are also summed in another order, rtol 2e-5 at these small
-sizes (chip_smoke.py uses 2e-4 at full width, where LL ~1.4e6). K3's
+sizes (chip_smoke.py holds the full width, where the log-likelihood is
+~1.4e6 and every reading on an H100 was below 1e-6, to 5e-6). K3's
 gradients: in float64 rtol 1e-9 with an absolute floor of 1e-9 x the
 largest entry of the chain (entries that cancel to ~0 keep only absolute
 accuracy); in float32 each chain's gradient within 1e-3 of the plain one in
 relative 2-norm (a reverse sweep over 54 days accumulates f32 rounding in
 another order on each side).
+
+K1 and K2 have two regimes (split: producer and consumer warps; wide: one
+thread per (chain, age)). Each is forced and held to the same tolerances;
+the two do the same operations in the same order, so they are also held
+against each other far below those (float64 rtol 1e-13, float32 1e-6;
+chip_smoke.py counts the bits that differ at full width).
 """
 
 import os
@@ -196,6 +203,97 @@ def test_forward_ckpt_matches_plain_version(cuda, dtype, rtol, tableau):
             k1 = sf.fused_objective(*args, **kw)
             np.testing.assert_allclose(k.double().cpu().numpy(),
                                        k1.double().cpu().numpy(), rtol=rtol)
+
+
+def _forward(kernel, regime, args, kw):
+    """K1 (``(ll, None)``) or K2 (``(ll, ckpt)``) forced into ``regime``
+    through its wrapper, the launch counted by regime."""
+    fn = sf.fused_objective if kernel == "K1" else adj.fused_forward_ckpt
+    before, by_regime = fn.launches, dict(fn.regime_calls)
+    out = fn(*args, **kw, regime=regime)
+    torch.cuda.synchronize()
+    by_regime[regime] += 1
+    assert fn.launches == before + 1 and fn.regime == regime
+    assert fn.regime_calls == by_regime
+    return (out, None) if kernel == "K1" else out
+
+
+def _close_forward(got, ref, rtol):
+    np.testing.assert_allclose(got[0].double().cpu().numpy(),
+                               ref[0].double().cpu().numpy(), rtol=rtol)
+    if got[1] is not None:
+        rck = ref[1].double().cpu().numpy()
+        assert got[1].shape == ref[1].shape
+        for row in range(rck.shape[1]):             # compartment by compartment
+            np.testing.assert_allclose(
+                got[1][:, row].double().cpu().numpy(), rck[:, row], rtol=rtol,
+                atol=rtol * np.abs(rck[:, row]).max(), err_msg=f"row {row}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("regime", [sf.SPLIT, sf.WIDE])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
+                                        (torch.float32, 2e-5)])
+@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
+def test_forward_regimes_match_plain_version(cuda, kernel, regime, dtype, rtol,
+                                             tableau):
+    """Each regime of K1 and K2 forced: B = 1, B not a multiple of a warp's
+    8 chains, several blocks; run-up and none; 55 intervals (3 chunks, the
+    last of 7 days) and 34."""
+    for runup in (True, False):
+        ll, theta0 = _objective(cuda, dtype, runup)
+        for B in (1, 5, 37, 300):
+            args, kw, _inf = _args(ll, theta0, B, B)
+            kw = dict(kw, substeps=2, tableau=tableau)
+            got = _forward(kernel, regime, args, kw)
+            assert torch.isfinite(got[0]).all()
+            _close_forward(got, adj.fused_forward_ckpt_reference(*args, **kw),
+                           rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-13),
+                                        (torch.float32, 1e-6)])
+@pytest.mark.parametrize("tableau,substeps", [("dopri5", 4), ("cash_karp", 3),
+                                              ("rk4", 1), ("fehlberg78", 2)])
+def test_forward_regimes_agree_and_keep_a_nan_chain(cuda, kernel, dtype, rtol,
+                                                    tableau, substeps):
+    """Split against wide, and a NaN chain (its first beta): NaN from both
+    regimes, every other chain's bits as without it."""
+    ll, theta0 = _objective(cuda, dtype, True, 50)
+    args, kw, _inf = _args(ll, theta0, 21, 4)
+    kw = dict(kw, substeps=substeps, tableau=tableau)
+    clean = {r: _forward(kernel, r, args, kw) for r in (sf.SPLIT, sf.WIDE)}
+    _close_forward(clean[sf.SPLIT], clean[sf.WIDE], rtol)
+    args[3][0, 9] = float("nan")
+    keep = [c for c in range(21) if c != 9]
+    for regime, ref in clean.items():
+        got = _forward(kernel, regime, args, kw)
+        assert torch.isnan(got[0][9]) and torch.isfinite(got[0][keep]).all()
+        assert torch.equal(got[0][keep], ref[0][keep])
+        if got[1] is not None:
+            assert torch.isnan(got[1][1:, :5, :, 9]).all()
+            assert torch.equal(got[1][..., keep], ref[1][..., keep])
+
+
+@pytest.mark.cuda
+def test_forward_rule_picks_and_counts(cuda):
+    """No regime given: the rule's pick runs and is counted, also at the
+    split regime's largest ring (fehlberg78 in float64)."""
+    ll, theta0 = _objective(cuda, torch.float64)
+    args, kw, _inf = _args(ll, theta0, 12, 2)
+    kw = dict(kw, substeps=2, tableau="fehlberg78")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    picked = sf.choose_forward_regime(12, sms)
+    ref = adj.fused_forward_ckpt_reference(*args, **kw)
+    for kernel, fn in (("K1", sf.fused_objective), ("K2", adj.fused_forward_ckpt)):
+        by_regime = dict(fn.regime_calls)
+        got = fn(*args, **kw)
+        by_regime[picked] += 1
+        assert fn.regime == picked and fn.regime_calls == by_regime
+        _close_forward((got, None) if kernel == "K1" else got, ref, 1e-10)
 
 
 def _adjoint(regime, agevec, scal, beff, obs, valid, ck, g, M, kw):
