@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # everything; the last line says ok
     python3 chip_smoke.py --k3     # build, then phases 7 and 8 only (no ok line)
     python3 chip_smoke.py --fwd    # build, then phase 2b only: K1 and K2 (no ok line)
+    python3 chip_smoke.py --main   # build, then phases 12-14 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -67,7 +68,33 @@ Phases (any failure exits non-zero before the final line):
      counted from 0: 64 chains x 20 iterations (K3's regime 1), and 1024
      chains x 5 iterations, above the crossover, where every K3 call must
      run in regime 2;
- 12. print the kernels line and, last, the device line.
+ 12. the primary executable, ``cli.sepaihrd_main``, on the card in float32,
+     dopri5@4, on the full Spain-2020 grid. First K1 is held against its
+     plain version (as in phase 3) at the hill climber's shapes, taken from
+     ``HillClimbConfig`` as the entry point builds it: its start (1 chain),
+     its cloud and its two line-search ladders; then ``--algorithm hillmcmc
+     --chains 1024 --scale MAIN_SCALE`` with K1's launch counts set to 0
+     just before and read after, by chain count and regime (the hill
+     climber's cloud and its two line-search ladders, and the 1024-chain
+     MH, each in the regime the rule picks for its chain count), best >=
+     initial, the files of ``tests/test_cli.py:170-175``, a finite R0; the
+     hill climber's seconds per iteration and the report's; then
+     ``--algorithm nuts --chains 64 --skip-report`` at nuts_settings.txt's
+     depth, K2 and K3 counted from 0;
+ 13. the report at real size: ``generate_full_report`` on the committed
+     50 000-draw posterior with the arguments that wrote
+     ``results/spain2020/analysis/`` (``report_anchor.py``), into
+     ``chiprun_out/``, every group of compared numbers within its bar in
+     ``report_anchor.GROUP_RTOL`` of the committed tree (beyond one unit of
+     the last printed digit; each bar fixed from the host CPU readings); its
+     seconds and draws/s, and the card's idle share over one replay batch
+     of 1024 draws (torch.profiler);
+ 14. serovalid in float64: the ENE-COVID term's ``sero_of`` at the
+     committed serovalid MAP gives ``serovalid_metadata.json``'s
+     ``sero_day64`` to rtol 5e-3; the penalty and its autograd gradient at
+     the MAP and two draws near it are finite and equal the same call on
+     the CPU to rtol 1e-9;
+ 15. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -88,6 +115,8 @@ PEAK_BYTES = 3.35e12                                 # H100 SXM HBM3
 # 8.0e-7 at every shape on an H100 (the kernel contracts into FMAs, the plain
 # version does not), so a wrong coefficient on one stage cannot pass.
 FWD_TOL = {"float64": 1e-10, "float32": 5e-6}
+# phase 12: the depth of the hillmcmc run (MH 100 000 x MAIN_SCALE steps)
+MAIN_SCALE = 0.002
 
 
 def fail(msg):
@@ -122,7 +151,8 @@ def cuda_ms(fn, reps, warmup=1):
 
 
 def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
-    """Kernel vs plain version on the card for one configuration."""
+    """Kernel vs plain version on the card for one configuration (the plain
+    version's time is that of the one call that is checked)."""
     import numpy as np
     import torch
     from mmidv1_tpu_torch.calibration.param_space import REFLECT
@@ -154,8 +184,7 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
     k = fused_objective(*args, **kw)
     regime = fused_objective.regime
     torch.cuda.synchronize()
-    r = fused_objective_reference(*args, **kw)
-    torch.cuda.synchronize()
+    r, plain_ms = cuda_once(lambda: fused_objective_reference(*args, **kw))
     k_np, r_np = k.double().cpu().numpy(), r.double().cpu().numpy()
     if not np.array_equal(np.isnan(k_np), np.isnan(r_np)):
         fail(f"{case}: NaN pattern differs between kernel and plain version")
@@ -177,8 +206,6 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
         fail(f"{case}: kernel vs plain max rel err {max_rel:.3e} > {tol:.0e}")
 
     ms = cuda_ms(lambda: fused_objective(*args, **kw), reps=10)
-    plain_ms = cuda_ms(lambda: fused_objective_reference(*args, **kw), reps=1,
-                       warmup=0)
     objective_ms = cuda_ms(lambda: ll(thetas), reps=10)
     elem = torch.finfo(dtype).bits // 8
     nbytes = sum(a.numel() for a in args[:6]) * elem + B * elem
@@ -491,6 +518,23 @@ def device_profile(run, calls=5):
     if not busy:
         fail("torch.profiler reported no device time")
     return stages, busy
+
+
+def device_busy_ms(run):
+    """Device time of one call of ``run`` (a warm one) from torch.profiler's
+    CUDA activity alone, summed from the raw events: an eager replay
+    launches some 10^5 kernels, too many for ``key_averages``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    if not busy:
+        fail("torch.profiler reported no device time")
+    return busy
 
 
 def regime_crossover(cache, sizes=(64, 128, 256, 320, 384, 448, 512, 1024,
@@ -819,6 +863,7 @@ def zero_counts():
     for fwd in (fused_objective, fused_forward_ckpt):
         fwd.launches = 0
         fwd.regime_calls = {1: 0, 2: 0}
+        fwd.batch_calls = {}
     fused_adjoint.launches = 0
     fused_adjoint.kernel_launches = 0
     fused_adjoint.regime_calls = {1: 0, 2: 0}
@@ -983,8 +1028,256 @@ def k3_phases(cache):
     return k3_cases, timings, regime_crossover(cache)
 
 
+def k3_pick_row(cache, B):
+    """What K3's rule picks for ``B`` float32 chains on the NUTS shape and
+    how many kernels that regime launches a call, as a crossover row for
+    :func:`read_counts` (one call, before the counts are set to 0)."""
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import CLAMP
+    from mmidv1_tpu_torch.ops import fused_adjoint, fused_forward_ckpt
+    _vg, args, kw, _th = spain_case(cache, "float32", CLAMP, "dopri5", 4, B,
+                                    B + 7)
+    y0, agevec, scal, beff, obs, valid, M = args
+    ll, ck = fused_forward_ckpt(*args, **kw)
+    kernels = fused_adjoint.kernel_launches
+    fused_adjoint(agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M,
+                  **kw)
+    torch.cuda.synchronize()
+    regime = fused_adjoint.regime
+    return dict(B=B, dtype="float32", picked=regime, **{
+        f"regime{regime}_kernels": fused_adjoint.kernel_launches - kernels})
+
+
+def primary_executable(cache, card):
+    """Phase 12: ``sepaihrd_main`` with hillmcmc (K1 counted by chain count
+    and regime) and with nuts (K2 / K3 counted)."""
+    import torch
+    from mmidv1_tpu_torch.cli import sepaihrd_main
+    from mmidv1_tpu_torch.ops import fused_objective
+    from mmidv1_tpu_torch.calibration.hill import HillClimbConfig
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    # K1 against its plain version at the shapes the climber hands it, from
+    # the configuration the entry point builds (the full grid, float32)
+    if "float32" not in cache:
+        cache["float32"] = load_spain_pipeline(HERE, dtype=torch.float32,
+                                               device="cuda")
+    cfg = HillClimbConfig.from_settings(cache["float32"].settings.get("hill", {}))
+    hill_shapes = sorted({1, cfg.cloud_size, cfg.max_backtrack,
+                          cfg.max_expansion})
+    hill_cases = [compare(f"float32 dopri5@4 B={B} (hill climber shape)", B,
+                          "float32", "dopri5", 4, FWD_TOL["float32"], cache,
+                          seed=200 + B)
+                  for B in hill_shapes]
+
+    out_dir = os.path.join(HERE, "chiprun_out", "chip_smoke_main")
+    common = ["--device", "cuda", "--project-root", HERE]
+    zero_counts()
+    t0 = time.perf_counter()
+    s = sepaihrd_main.run(["--algorithm", "hillmcmc", "--chains", "1024",
+                           "--scale", str(MAIN_SCALE), "--output-dir", out_dir]
+                          + common)
+    wall = time.perf_counter() - t0
+    by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
+    counts = dict(k1=fused_objective.launches,
+                  k1_regime_calls=dict(fused_objective.regime_calls),
+                  k1_batch_calls=by_batch)
+    hill, steps = s["hill"], s["mh_steps"]
+    ran = sorted({1, hill["cloud_size"], hill["max_backtrack"],
+                  hill["max_expansion"]})
+    if ran != hill_shapes:
+        fail(f"the climber ran at B = {ran}; K1 was held at B = {hill_shapes}")
+    # main's initial value and the climber's start (1 chain); per climber
+    # iteration the cloud and the two ladders; MH's start and its steps
+    expected = {}
+    for B, n in ((1, 2), (hill["cloud_size"], hill["iterations"]),
+                 (hill["max_backtrack"], hill["iterations"]),
+                 (hill["max_expansion"], hill["iterations"]),
+                 (1024, 1 + steps)):
+        regime = forward_pick(B)
+        expected.setdefault(B, {})
+        expected[B][regime] = expected[B].get(regime, 0) + n
+    print(f"[main-hill] K1 launches {counts['k1']} by chain count and regime "
+          f"{by_batch} (expected {expected}; "
+          f"{ {B: REGIMES[forward_pick(B)] for B in expected} })", flush=True)
+    if by_batch != expected:
+        fail(f"sepaihrd_main hillmcmc launched K1 {by_batch}, expected "
+             f"{expected}")
+    if not (abs(s["best_logl"]) < float("inf")
+            and s["best_logl"] >= s["initial_logl"]):
+        fail(f"sepaihrd_main: best {s['best_logl']} not finite and >= "
+             f"initial {s['initial_logl']}")
+    if not (abs(s["r0"]) < float("inf") and s["r0"] > 0):
+        fail(f"sepaihrd_main: R0 {s['r0']}")
+    for rel in ("sepaihrd_age_baseline_results.csv",
+                "calibrated_parameters.txt",
+                "sepaihrd_age_calibrated_results.csv",
+                "mcmc_aggregated/metrics_summary.csv",
+                "posterior_predictive/daily_deaths_median.csv"):
+        if not os.path.exists(os.path.join(out_dir, rel)):
+            fail(f"sepaihrd_main did not write {rel}")
+    hill_s = s["phase1_seconds"] / hill["iterations"]
+    steps_per_s = 1024 * steps / s["phase2_seconds"]
+    print(f"[main-hill] sepaihrd_main hillmcmc, 1024 chains, scale "
+          f"{MAIN_SCALE}: {wall:.1f} s in all; hill climber "
+          f"{hill['iterations']} iterations of a {hill['cloud_size']}-point "
+          f"cloud + 10 + 12 ladder points, {hill_s:.4f} s an iteration; "
+          f"AM-MH {steps} steps, {steps_per_s:.4e} chain-steps/s; report "
+          f"{s['report_draws']} draws in {s['report_seconds']:.2f} s; best "
+          f"logL {s['best_logl']:.6e} >= initial {s['initial_logl']:.6e}; "
+          f"R0 {s['r0']:.4f} on {card}", flush=True)
+    hillmcmc = dict(s, wall_seconds=wall, launches=counts,
+                    hill_seconds_per_iteration=hill_s,
+                    chain_steps_per_s=steps_per_s, k1_compare=hill_cases)
+
+    row = k3_pick_row(cache, 64)
+    zero_counts()
+    t0 = time.perf_counter()
+    s = sepaihrd_main.run(["--algorithm", "nuts", "--chains", "64",
+                           "--skip-report", "--output-dir",
+                           os.path.join(HERE, "chiprun_out",
+                                        "chip_smoke_main_nuts")] + common)
+    wall = time.perf_counter() - t0
+    counts = read_counts("main-nuts", 64, [row])
+    if min(counts["k2"], counts["k3"]) < 200 or counts["k1"] != 1:
+        fail(f"sepaihrd_main nuts launched K1/K2/K3 {counts}")
+    if s["samples_shape"] != [25, 64, 62] or not abs(s["best_logl"]) < float("inf"):
+        fail(f"sepaihrd_main nuts: samples {s['samples_shape']}, best "
+             f"{s['best_logl']}")
+    print(f"[main-nuts] sepaihrd_main nuts, 64 chains, nuts_settings.txt: "
+          f"{wall:.1f} s; NUTS {s['phase2_seconds']:.2f} s, K2/K3 launches "
+          f"{counts['k2']}/{counts['k3']}; best logL {s['best_logl']:.6e}, "
+          f"R0 {s['r0']:.4f} on {card}", flush=True)
+    return dict(hillmcmc=hillmcmc, nuts=dict(s, wall_seconds=wall,
+                                             launches=counts))
+
+
+def report_phase(card):
+    """Phase 13: the 50 000-draw report against the committed tree, its
+    speed, and the card's idle share over one replay batch."""
+    import numpy as np
+    import torch
+    import report_anchor as ra
+    from mmidv1_tpu_torch.analysis.report import _replay_fn
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    out = os.path.join(HERE, "chiprun_out", "report_anchor_torch_cuda")
+    seconds, n = ra.run_torch(out, "cuda", "float32")
+    ra.drop_bulky(out)
+    groups = ra.compare_trees(out)
+    max_err = max(g["max_err"] for g in groups.values())
+    for name, g in groups.items():
+        print(f"[report] {name}: {g['files']} files, {g['values']} values, max "
+              f"error {g['max_err']:.3e} beyond the last printed digit (bar "
+              f"{ra.GROUP_RTOL[name]:.0e}; {g['file']} {g['where']})",
+              flush=True)
+    print(f"[report] 50 000 draws in {seconds:.1f} s = {n / seconds:.1f} "
+          f"draws/s (float32, batches of 1024, dopri5@4) on {card}; max error "
+          f"vs the committed tree {max_err:.3e}", flush=True)
+    over = ra.over_bar(groups)
+    if over:
+        fail(f"report vs results/spain2020/analysis: (error, bar) by group "
+             f"{over}")
+
+    # one replay batch: wall time on the host clock, and the card's busy time
+    pipe = load_spain_pipeline(HERE, dtype=torch.float32, device="cuda")
+    base_y0 = torch.as_tensor(pipe.data.initial_sepaihrd_state(
+        sigma=pipe.params.sigma, gamma_p=pipe.params.gamma_p,
+        gamma_A=pipe.params.gamma_A, gamma_I=pipe.params.gamma_I,
+        p=pipe.params.p, h=pipe.params.h), dtype=torch.float32, device="cuda")
+    replay = _replay_fn(pipe.space, pipe.params, base_y0,
+                        torch.as_tensor(pipe.ts, dtype=torch.float32,
+                                        device="cuda"), 4, False)
+    batch = torch.as_tensor(ra.load_posterior()[:1024], device="cuda")
+    with torch.inference_mode():                 # as generate_full_report
+        run = lambda: replay(batch)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = device_busy_ms(run)
+    idle = 1 - busy_ms / batch_ms
+    print(f"[report] one replay batch of 1024 draws: {batch_ms:.1f} ms on the "
+          f"host clock, the card busy {busy_ms:.1f} ms of it (idle share "
+          f"{idle:.3f}) on {card}", flush=True)
+    return dict(seconds=seconds, draws=n, draws_per_s=n / seconds,
+                groups=groups, max_err=max_err, rtol=ra.GROUP_RTOL,
+                batch_ms=batch_ms, batch_device_busy_ms=busy_ms,
+                batch_idle_share=idle, out=out,
+                committed_rows_checked=int(np.sum([g["values"] for g in
+                                                   groups.values()])))
+
+
+def serovalid_phase(card):
+    """Phase 14: the ENE-COVID term in float64 on the card, against the
+    committed serovalid MAP and against the same call on the CPU."""
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.calibration.serovalid import (make_sero_penalty,
+                                                        relax_bounds)
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.data import read_sepaihrd_parameters
+    sv = os.path.join(HERE, "results", "spain2020_serovalid")
+    with open(os.path.join(sv, "serovalid_metadata.json")) as f:
+        target = json.load(f)["sero_day64"]
+    noise = np.random.default_rng(14).standard_normal((2, 62))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pipe = load_spain_pipeline(HERE, dtype=torch.float64, device=dev)
+        space, _idx = relax_bounds(pipe.space)
+        calib = read_sepaihrd_parameters(
+            os.path.join(sv, "calibrated_parameters.txt"), 4,
+            N=pipe.data.population_by_age,
+            M_baseline=pipe.params.M_baseline.cpu().numpy(),
+            dtype=torch.float64, device=dev)
+        theta = space.extract(calib)
+        sig = space.sigmas
+        thetas = torch.stack([theta] + [
+            theta + 0.02 * sig * torch.as_tensor(z, device=dev) for z in noise])
+        pen = make_sero_penalty(space, pipe.params, pipe.data, pipe.ts)
+        sero = float(pen.sero_of(theta))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, grad = pen.value_and_grad(thetas)
+        value, grad = value.cpu().numpy(), grad.cpu().numpy()
+        out[dev] = dict(sero=sero, value=value, grad=grad,
+                        seconds=time.perf_counter() - t0)
+    c, h = out["cuda"], out["cpu"]
+    rel_sero = abs(c["sero"] - target) / target
+    rel_v = float(np.max(np.abs(c["value"] - h["value"]) / np.abs(h["value"])))
+    rel_g = float(np.max(np.abs(c["grad"] - h["grad"]) /
+                         (np.abs(h["grad"]) + np.abs(h["grad"]).max())))
+    print(f"[serovalid] float64 sero_day64 at the committed serovalid MAP "
+          f"{c['sero']:.6f} vs {target:.6f} (rel err {rel_sero:.3e}, bar 5e-3); "
+          f"penalty {c['value'].tolist()}; card vs CPU: value rel err "
+          f"{rel_v:.3e}, gradient {rel_g:.3e} (bar 1e-9); value_and_grad of 3 "
+          f"draws {c['seconds']:.2f} s on {card} ({h['seconds']:.2f} s on the "
+          f"host)", flush=True)
+    if not (np.isfinite(c["value"]).all() and np.isfinite(c["grad"]).all()):
+        fail("serovalid: non-finite penalty or gradient on the card")
+    if not (rel_sero <= 5e-3 and rel_v <= 1e-9 and rel_g <= 1e-9):
+        fail(f"serovalid: sero {rel_sero:.3e}, value {rel_v:.3e}, gradient "
+             f"{rel_g:.3e}")
+    return dict(sero_day64=c["sero"], target=target, rel_err=rel_sero,
+                penalty=c["value"].tolist(), card_vs_cpu_value=rel_v,
+                card_vs_cpu_grad=rel_g, seconds=c["seconds"],
+                cpu_seconds=h["seconds"])
+
+
+def main_phases(cache, card):
+    """Phases 12-14."""
+    t0 = time.perf_counter()
+    out = dict(primary=primary_executable(cache, card),
+               report=report_phase(card), serovalid=serovalid_phase(card))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[main] phases 12-14: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
 def main():
     k3_only = "--k3" in sys.argv[1:]
+    main_only = "--main" in sys.argv[1:]
     fwd_only = "--fwd" in sys.argv[1:]
     try:
         import torch
@@ -1044,6 +1337,16 @@ def main():
         k3_phases(cache)
         print("chip_smoke --k3: K3 held and timed; run without arguments for "
               "the whole check", flush=True)
+        return 0
+    if main_only:
+        results["main"] = main_phases(cache, card)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_main.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --main: sepaihrd_main, the report and serovalid "
+              "checked on the card; run without arguments for the whole "
+              "check", flush=True)
         return 0
 
     # 2b. the forward kernels in both regimes
@@ -1171,7 +1474,12 @@ def main():
              f"/ {mala_wide['k3_regime']}, not 1 / 2")
     results["mala"], results["mala_1024"] = mala, mala_wide
 
-    # 12. the kernels line, the card, the device line: each kernel's top-level
+    # 12-14. the primary executable, the report at real size, serovalid
+    main_run = results["main"] = main_phases(cache, card)
+    hill_counts = main_run["primary"]["hillmcmc"]["launches"]
+    main_nuts = main_run["primary"]["nuts"]["launches"]
+
+    # 15. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
@@ -1210,13 +1518,18 @@ def main():
         "name": "sepaihrd_fused", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_fused.cu",
         "replaces": "mmidv1_tpu/ops/sepaihrd_pallas.py:364",
-        "launches": launches,
+        "launches": launches + hill_counts["k1"],
         "max_abs_err": head["max_abs_err"], "max_rel_err": head["max_rel_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "regime": head["regime"], "kernels_per_call": 1,
-        "launches_by_regime": k1_by_regime,
+        "launches_by_regime": {
+            r: k1_by_regime[r] + hill_counts["k1_regime_calls"][r]
+            for r in k1_by_regime},
+        "paths": {"psomcmc (calibrate_spain) B=1024": dict(
+                      k1=launches, k1_regime_calls=k1_by_regime),
+                  "hillmcmc (sepaihrd_main)": hill_counts},
         **chain_keys(fcase(1024, "float32")["K1"]["bounds"], head["ms"],
                      fwd["clock_mhz"]),
         "by_regime": by_regime("K1"),
@@ -1226,7 +1539,8 @@ def main():
         "shape": "B=1024 float32 dopri5@4",
         "configs": [{k: c[k] for k in ("case", "max_rel_err", "max_abs_err",
                                        "ms", "plain_ms", "bound_ms", "bound_by")}
-                    for c in cases]}, {
+                    for c in cases + main_run["primary"]["hillmcmc"][
+                        "k1_compare"]]}, {
         "name": "sepaihrd_fwd_ckpt", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_adjoint.cu",
         "replaces": "mmidv1_tpu/ops/sepaihrd_adjoint.py:359",
@@ -1247,6 +1561,7 @@ def main():
                       for r in fwd["crossover"]],
         "paths": {name: {k: c[k] for k in ("k2", "k2_regime_calls")}
                   for name, c in (("nuts B=64", nuts_launches),
+                                  ("nuts (sepaihrd_main) B=64", main_nuts),
                                   ("mala B=64", mala),
                                   ("mala B=1024", mala_wide))},
         "shape": "B=64 float32 dopri5@4 CLAMP",
@@ -1269,6 +1584,7 @@ def main():
         "paths": {name: {k: c[k] for k in ("k3", "k3_kernels",
                                            "k3_regime_calls")}
                   for name, c in (("nuts B=64", nuts_launches),
+                                  ("nuts (sepaihrd_main) B=64", main_nuts),
                                   ("mala B=64", mala),
                                   ("mala B=1024", mala_wide))},
         "by_regime": {f"B={t['B']} {t['dtype']}": t["k3_forced"]

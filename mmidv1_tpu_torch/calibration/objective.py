@@ -17,7 +17,8 @@ carries roundoff relative to the day increment, not the running cumulative.
 This eager version runs one torch op per stage and compartment group; the
 calibration path uses the fused CUDA kernel behind
 :func:`mmidv1_tpu_torch.ops.build_objective_fused` instead, whose plain
-version lives beside it.
+version lives beside it. :func:`build_incidence_fn` (``:163-212``) gives the
+trajectories and daily incidence that the post-calibration report reads.
 """
 
 from __future__ import annotations
@@ -118,9 +119,10 @@ def build_objective(
         y0, infeasible = sepaihrd.initial_state_for_params(params, base_y0)
         B = theta.shape[0]
         y0 = y0.expand((B,) + y0.shape[-2:])
+        frozen = sepaihrd.FrozenRHS(params)
         ctx = sepaihrd.interval_beta_eff(params, ts_t)
-        ctx = ctx.expand((B, len(ts) - 1)).movedim(-1, 0)       # (T-1, B)
-        f = lambda t, y, beta_eff: sepaihrd.rhs_frozen(t, y, params, beta_eff)
+        ctx = frozen.beta_a(ctx.expand((B, len(ts) - 1)).movedim(-1, 0))
+        f = lambda t, y, beta_a: frozen(y, beta_a)              # (T-1, B, A)
 
         def reset_accumulators(y):
             y = y.clone()
@@ -160,4 +162,49 @@ def build_objective(
         return torch.where(bad, torch.full_like(ll, lowest(dtype)), ll)
 
     return loglik_batch
+
+
+def build_incidence_fn(
+    space: ParameterSpace,
+    base_params: SEPAIHRDParams,
+    data: CalibrationData,
+    ts: np.ndarray,
+    *,
+    base_initial_state=None,
+    substeps: int = 4,
+    tableau: str = "dopri5",
+    constraint_mode: str = CLAMP,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+):
+    """Build ``incidence(thetas (B, d)) -> (traj, daily)`` for posterior
+    predictives (port of ``objective.py:163-212``, batched):
+
+    - ``traj``: the full ``(T, B, 11, A)`` trajectory
+    - ``daily``: ``(B, 3, T_obs, A)`` simulated daily (hosp, icu, deaths) on
+      the observation window, computed with the same anchoring/clamping as
+      the objective (reference ``ResultAggregator.cpp:296-336``).
+    """
+    dtype = dtype or base_params.dtype
+    dev = resolve_device(device or base_params.device)
+    ts, runup_offset, _num_obs = check_grid(ts, data)
+    base_y0 = torch.as_tensor(base_state(base_params, data, base_initial_state),
+                              dtype=dtype, device=dev)
+    base_params = base_params.to(dev, dtype)
+    ts_t = torch.as_tensor(ts, dtype=dtype, device=dev)
+
+    def incidence(thetas: torch.Tensor):
+        theta = space.constrain(thetas.to(dtype), constraint_mode)
+        params = space.apply(base_params, theta)
+        y0, _inf = sepaihrd.initial_state_for_params(params, base_y0)
+        y0 = y0.expand((theta.shape[0],) + y0.shape[-2:])
+        traj = sepaihrd.solve(params, y0, ts_t, method="fixed",
+                              substeps=substeps, tableau=tableau)
+        cums = traj[..., _MODEL_ROWS_FOR_OBS, :]          # (T, B, 3, A)
+        daily_full = torch.cat([torch.zeros_like(cums[:1]),
+                                torch.diff(cums, dim=0)])
+        daily = sepaihrd.max0(daily_full[runup_offset:])  # (T_obs, B, 3, A)
+        return traj, daily.permute(1, 2, 0, 3)            # (B, 3, T_obs, A)
+
+    return incidence
 

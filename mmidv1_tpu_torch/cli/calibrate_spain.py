@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..calibration.calibrator import calibrate
+from ..calibration.hill import HillClimbConfig
 from ..calibration.mh import MHConfig
 from ..calibration.nuts import NUTSConfig
 from ..calibration.param_space import CLAMP, REFLECT
@@ -95,11 +96,13 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
     if full:
         pso_cfg = PSOConfig.from_settings(pipe.settings["pso"])
         mh_cfg = MHConfig.from_settings(pipe.settings["mcmc"])
+        hill_cfg = HillClimbConfig.from_settings(pipe.settings["hill"])
         nuts_cfg = NUTSConfig.from_settings(pipe.settings["nuts"])
     else:
         pso_cfg = PSOConfig(swarm_size=pso_particles, iterations=pso_iters)
         mh_cfg = MHConfig(iterations=mcmc_iters, burn_in=burn_in,
                           adaptation_period=50, thinning=thinning)
+        hill_cfg = HillClimbConfig(iterations=max(pso_iters, 30))
         nuts_cfg = NUTSConfig(iterations=max(mcmc_iters // 10, 50))
     nuts_cfg = nuts_config or nuts_cfg
     nuts = algorithm.lower() == "nuts"
@@ -114,7 +117,9 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
     k2_k3 = (fused_forward_ckpt.launches, fused_adjoint.launches)
     t0 = time.perf_counter()
     result = calibrate(ll_clamp, ll_reflect, space, theta0, generator=gen,
-                       algorithm=algorithm, phase1_config=pso_cfg,
+                       algorithm=algorithm,
+                       phase1_config=(hill_cfg if algorithm.startswith("hill")
+                                      else pso_cfg),
                        mh_config=mh_cfg, nuts_config=nuts_cfg,
                        n_chains=chains, value_and_grad_batch_clamp=vag_clamp)
     best_ll = float(result.best_logl)

@@ -72,43 +72,71 @@ def rhs_frozen(t, y: torch.Tensor, params: SEPAIHRDParams,
     """RHS with the time-varying factor beta(t)*kappa(t) frozen to
     ``beta_eff`` (shape ``(...)``, one per chain). ``t`` is unused."""
     del t
-    S_, E_, P_, A_, I_, H_, ICU_ = (y[..., C.S, :], y[..., C.E, :],
-                                    y[..., C.P, :], y[..., C.A, :],
-                                    y[..., C.I, :], y[..., C.H, :],
-                                    y[..., C.ICU, :])
-    pr = params
-    inf_pressure = (P_ + A_ + _col(pr.theta) * I_) * pr.h_infec * inv_population(pr)
-    lam = _contact_matvec(pr.contact_matrix(), inf_pressure)
-    lam = max0(_col(beta_eff) * pr.a * lam)
+    f = FrozenRHS(params)
+    return f(y, f.beta_a(beta_eff))
 
-    flow_SE = lam * S_
-    flow_EP = _col(pr.sigma) * E_
-    flow_P_out = _col(pr.gamma_p) * P_
-    flow_PA = pr.p * flow_P_out
-    flow_PI = flow_P_out - flow_PA
 
-    flow_IH = pr.h * I_
-    flow_IR = _col(pr.gamma_I) * I_
-    flow_ID_comm = pr.d_community * I_
+class FrozenRHS:
+    """:func:`rhs_frozen` for one set of parameters, with what depends on
+    the parameters alone (1/N, the contact matrix, the rates as columns
+    against the age axis) computed once instead of at every stage, and
+    beta_eff * a once per interval (:meth:`beta_a`): an eager solve is bound
+    by the host's cost of each call. The flows and the order of the sums are
+    those of the equations above, term by term, so the results are the same
+    to the bit as computing everything at every call."""
 
-    flow_H_ICU = pr.icu * H_
+    def __init__(self, params: SEPAIHRDParams):
+        pr = params
+        self.a, self.p = pr.a, pr.p
+        self.M = pr.contact_matrix()
+        self.theta = _col(pr.theta)
+        self.h_infec, self.inv_n = pr.h_infec, inv_population(pr)
+        self.sigma, self.gamma_p = _col(pr.sigma), _col(pr.gamma_p)
+        self.gamma_A, self.gamma_I = _col(pr.gamma_A), _col(pr.gamma_I)
+        self.gamma_H, self.gamma_ICU = _col(pr.gamma_H), _col(pr.gamma_ICU)
+        self.h, self.d_community = pr.h, pr.d_community
+        self.icu, self.d_H, self.d_ICU = pr.icu, pr.d_H, pr.d_ICU
+        self.icu_out = self.gamma_ICU + pr.d_ICU
 
-    dS = -flow_SE
-    dE = flow_SE - flow_EP
-    dP = flow_EP - flow_P_out
-    dA = flow_PA - _col(pr.gamma_A) * A_
-    dI = flow_PI - (flow_IR + flow_IH + flow_ID_comm)
-    dH = flow_IH - (_col(pr.gamma_H) * H_ + pr.d_H * H_ + flow_H_ICU)
-    dICU = flow_H_ICU - (_col(pr.gamma_ICU) + pr.d_ICU) * ICU_
-    dR = (_col(pr.gamma_A) * A_ + flow_IR + _col(pr.gamma_H) * H_
-          + _col(pr.gamma_ICU) * ICU_)
-    dD = pr.d_H * H_ + pr.d_ICU * ICU_ + flow_ID_comm
-    dCumH = flow_IH
-    dCumICU = flow_H_ICU
+    def beta_a(self, beta_eff: torch.Tensor) -> torch.Tensor:
+        """``beta_eff (...)`` times the age susceptibility, ``(..., A)``."""
+        return _col(beta_eff) * self.a
 
-    out = [dS, dE, dP, dA, dI, dH, dICU, dR, dD, dCumH, dCumICU]
-    shape = torch.broadcast_shapes(*(o.shape for o in out))
-    return torch.stack([o.expand(shape) for o in out], dim=-2)
+    def __call__(self, y: torch.Tensor, beta_a: torch.Tensor) -> torch.Tensor:
+        S_, E_, P_, A_, I_, H_, ICU_ = y.unbind(-2)[:C.ICU + 1]
+        inf_pressure = (P_ + A_ + self.theta * I_) * self.h_infec * self.inv_n
+        lam = max0(beta_a * _contact_matvec(self.M, inf_pressure))
+
+        flow_SE = lam * S_
+        flow_EP = self.sigma * E_
+        flow_P_out = self.gamma_p * P_
+        flow_PA = self.p * flow_P_out
+        flow_PI = flow_P_out - flow_PA
+
+        flow_IH = self.h * I_
+        flow_IR = self.gamma_I * I_
+        flow_ID_comm = self.d_community * I_
+
+        flow_H_ICU = self.icu * H_
+        flow_AR = self.gamma_A * A_
+        flow_HR = self.gamma_H * H_
+        flow_HD = self.d_H * H_
+
+        dS = -flow_SE
+        dE = flow_SE - flow_EP
+        dP = flow_EP - flow_P_out
+        dA = flow_PA - flow_AR
+        dI = flow_PI - (flow_IR + flow_IH + flow_ID_comm)
+        dH = flow_IH - (flow_HR + flow_HD + flow_H_ICU)
+        dICU = flow_H_ICU - self.icu_out * ICU_
+        dR = flow_AR + flow_IR + flow_HR + self.gamma_ICU * ICU_
+        dD = flow_HD + self.d_ICU * ICU_ + flow_ID_comm
+        dCumH = flow_IH
+        dCumICU = flow_H_ICU
+
+        out = [dS, dE, dP, dA, dI, dH, dICU, dR, dD, dCumH, dCumICU]
+        shape = torch.broadcast_shapes(*(o.shape for o in out))
+        return torch.stack([o.expand(shape) for o in out], dim=-2)
 
 
 def interval_beta_eff(params: SEPAIHRDParams, ts: torch.Tensor) -> torch.Tensor:
@@ -134,8 +162,9 @@ def solve(params: SEPAIHRDParams, y0: torch.Tensor, ts, *, method="fixed",
             "the adaptive one belongs to a later slice of the port")
     ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
     if freeze_schedules:
-        ctx = interval_beta_eff(params, ts).movedim(-1, 0)
-        f = lambda t, y, beta_eff: rhs_frozen(t, y, params, beta_eff)
+        frozen = FrozenRHS(params)
+        ctx = frozen.beta_a(interval_beta_eff(params, ts).movedim(-1, 0))
+        f = lambda t, y, beta_a: frozen(y, beta_a)
     else:
         ctx = None
         f = lambda t, y: rhs(t, y, params)

@@ -133,6 +133,7 @@ def fused_forward_ckpt(y0: torch.Tensor, agevec: torch.Tensor,
 fused_forward_ckpt.launches = 0     # calls that launched K2 (one kernel each)
 fused_forward_ckpt.regime = None    # the regime of the last call
 fused_forward_ckpt.regime_calls = {SPLIT: 0, WIDE: 0}   # those calls by regime
+fused_forward_ckpt.batch_calls = {}   # those calls by chain count, then regime
 
 
 def fused_forward_ckpt_reference(y0, agevec, scal, beff, obs, valid, M, *,

@@ -223,7 +223,8 @@ def _launch_forward(wrapper, y0, agevec, scal, beff, obs, valid, M, *,
                     run_start, run_count, runup_offset, substeps, tableau,
                     ckpt=None, regime=None):
     """Launch K1 (``ckpt`` None) or K2 on validated CUDA inputs and count the
-    launch on ``wrapper`` (its ``launches``, ``regime``, ``regime_calls``):
+    launch on ``wrapper`` (its ``launches``, ``regime``, ``regime_calls``,
+    ``batch_calls``):
     the log-likelihoods ``(B,)``. ``regime`` None lets
     :func:`choose_forward_regime` pick."""
     dev, dtype = y0.device, y0.dtype
@@ -250,6 +251,8 @@ def _launch_forward(wrapper, y0, agevec, scal, beff, obs, valid, M, *,
     wrapper.launches += 1
     wrapper.regime = regime
     wrapper.regime_calls[regime] += 1
+    by_regime = wrapper.batch_calls.setdefault(B, {})
+    by_regime[regime] = by_regime.get(regime, 0) + 1
     return out
 
 
@@ -284,6 +287,7 @@ def fused_objective(y0: torch.Tensor, agevec: torch.Tensor, scal: torch.Tensor,
 fused_objective.launches = 0        # calls that launched K1 (one kernel each)
 fused_objective.regime = None       # the regime of the last call
 fused_objective.regime_calls = {SPLIT: 0, WIDE: 0}   # those calls by regime
+fused_objective.batch_calls = {}    # those calls by chain count, then regime
 
 
 def host_consts(tableau: str, substeps: int, M, run_start, run_count):
@@ -438,7 +442,7 @@ def plain_days(y, agevec, scal, beff, obs, valid, M, *, run_start, run_count,
     ll, comp = model.fold_start(y.shape[-1],
                                   runup_offset == 0 and first == 0)
     T_obs = obs.shape[0]
-    ckpts = []
+    ckpts, cache = [], {}
     for r, (start, count) in enumerate(zip(run_start, run_count)):
         beta = beff[r]
         f = lambda t, yy, beta=beta: model.rhs(yy, beta)
@@ -447,7 +451,7 @@ def plain_days(y, agevec, scal, beff, obs, valid, M, *, run_start, run_count,
                 ckpts.append(y)
             y = y.clone()
             y[_DAY_ROWS] = 0.0
-            y = _advance_interval_fixed(f, 0.0, 1.0, y, substeps, tab)
+            y = _advance_interval_fixed(f, 0.0, 1.0, y, substeps, tab, cache)
             j = t + 1 - runup_offset
             if 0 <= j < T_obs:
                 ll, comp = model.fold_day(ll, comp, j, incidence(y[_DAY_ROWS]))

@@ -177,6 +177,22 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 20
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "report_anchor.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts the card runs import nothing of JAX or of the JAX package,
+    at the top or inside a function."""
+    import ast
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "mmidv1_tpu")]
+    assert not bad, bad
+    assert "report_anchor_jax" not in names
+
+
 @pytest.mark.parametrize("runup", [20.0, 0.0])
 def test_period_runs_match_jax(spain_params, runup):
     """The static schedule runs handed to the kernel are the Pallas ones."""
