@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k3     # build, then phases 7 and 8 only (no ok line)
     python3 chip_smoke.py --fwd    # build, then phase 2b only: K1 and K2 (no ok line)
     python3 chip_smoke.py --main   # build, then phases 12-14 only (no ok line)
+    python3 chip_smoke.py --campaign  # build, then phases 15-17 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -94,7 +95,29 @@ Phases (any failure exits non-zero before the final line):
      ``sero_day64`` to rtol 5e-3; the penalty and its autograd gradient at
      the MAP and two draws near it are finite and equal the same call on
      the CPU to rtol 1e-9;
- 15. print the kernels line and, last, the device line.
+ 15. K1 held against its plain version (as in phase 3) at the bench's
+     micro shape (4096 chains) and the campaigns' (8192), float32
+     dopri5@4, wide; then the port's bench, ``cli.benchmark_main --mode
+     all --batch 4096 --iterations 20 --repeats 5`` in float32 on the full
+     grid, K1's
+     launches counted by chain count and regime from 0: the micro mode's
+     4096 chains all in the wide regime, the pso / hill / mcmc / hillmcmc
+     modes at 1024 chains and below all split; its JSON on a line of its
+     own, every number finite;
+ 16. the checkpointed campaign, ``cli.production_campaign --chains 8192
+     --iterations 200 --segments 4 --thinning 25 --burn-in 50
+     --skip-report`` (AM-MH) into ``chiprun_out/``, then the same campaign
+     killed after 2 segments (``--segments 2`` over half the iterations
+     into a fresh directory) and resumed with ``--segments 4``: its segment
+     files, final ``x`` and posterior trace equal the uninterrupted run's
+     to the bit (the bulk files are then deleted, the metadata kept); then one DE-MC campaign of the same size (``--proposal
+     de``), acceptance in (0, 1). K1 counted from 0 for each: every call at
+     8192 chains, all wide (start, steps, the float64 re-selection);
+ 17. replica exchange, ``--rungs 8`` over the same 8192 chains (1024 a
+     rung, 8192 rows a K1 call, wide): the same kill-and-resume check to
+     the bit, finite swap rates per pair, a final ladder that falls from
+     ``betas[0] == 1``;
+ 18. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -1275,10 +1298,189 @@ def main_phases(cache, card):
     return out
 
 
+def bench_phase(card):
+    """Phase 15: the port's bench, K1 counted by chain count and regime."""
+    import math
+    from mmidv1_tpu_torch.cli import benchmark_main
+    from mmidv1_tpu_torch.ops import fused_objective
+    batch, iterations, repeats = 4096, 20, 5
+    zero_counts()
+    t0 = time.perf_counter()
+    res = benchmark_main.run(
+        ["--mode", "all", "--batch", str(batch), "--iterations",
+         str(iterations), "--repeats", str(repeats), "--json", "--device",
+         "cuda", "--project-root", HERE])
+    wall = time.perf_counter() - t0
+    by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
+    print(json.dumps(res), flush=True)
+    bad = [k for k, v in res.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        fail(f"bench: non-finite {bad}")
+    # micro: the first call, the repeats, the back-to-back calls
+    micro = 1 + repeats + repeats * benchmark_main.INSCAN_CALLS
+    if forward_pick(batch) != 2 or by_batch.get(batch) != {2: micro}:
+        fail(f"bench: K1 at B = {batch} ran {by_batch.get(batch)}, expected "
+             f"all {micro} wide")
+    for B, calls in by_batch.items():
+        if B != batch and (B > 1024 or set(calls) != {1}):
+            fail(f"bench: K1 at B = {B} ran {calls}, expected split at "
+                 f"1024 chains and below")
+    print(f"[bench] mode all, batch {batch}, {iterations} iterations, "
+          f"{repeats} repeats: {wall:.1f} s; micro "
+          f"{res['micro_evals_per_sec']:.4e} evals/s (min "
+          f"{res['micro_evals_per_sec_min']:.4e}, max "
+          f"{res['micro_evals_per_sec_max']:.4e}), back to back "
+          f"{res['micro_evals_per_sec_inscan']:.4e}; mcmc "
+          f"{res['mcmc_chain_steps_per_sec']:.4e} chain-steps/s; K1 by chain "
+          f"count and regime {by_batch} on {card}", flush=True)
+    return dict(results=res, wall_seconds=wall,
+                launches=dict(k1=fused_objective.launches,
+                              k1_regime_calls=dict(fused_objective.regime_calls),
+                              k1_batch_calls=by_batch))
+
+
+CAMPAIGN_CHAINS = 8192
+
+
+def drive_campaign(name, argv, card, expected):
+    """One ``production_campaign`` run on the card, K1 counted from 0: every
+    call at 8192 chains in the wide regime, ``expected`` of them (the start
+    unless resumed, one a step, the float64 re-selection)."""
+    from mmidv1_tpu_torch.cli import production_campaign
+    from mmidv1_tpu_torch.ops import fused_objective
+    zero_counts()
+    t0 = time.perf_counter()
+    meta = production_campaign.run(argv)
+    wall = time.perf_counter() - t0
+    by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
+    if forward_pick(CAMPAIGN_CHAINS) != 2 or set(by_batch) != {CAMPAIGN_CHAINS} \
+            or by_batch[CAMPAIGN_CHAINS] != {2: expected}:
+        fail(f"campaign {name}: K1 by chain count and regime {by_batch}, "
+             f"expected {expected}, all at {CAMPAIGN_CHAINS} chains, wide")
+    acc = meta["mean_acceptance"]
+    if not (0.0 < acc < 1.0 and abs(meta["best_logl_float64"]) < float("inf")):
+        fail(f"campaign {name}: acceptance {acc}, float64 MAP "
+             f"{meta['best_logl_float64']}")
+    print(f"[campaign] {name}: {wall:.1f} s, "
+          f"{meta['chain_steps_per_sec_incl_host']:.4e} chain-steps/s, mean "
+          f"acceptance {acc:.4f}, float64 MAP {meta['best_logl_float64']:.8e}"
+          f", K1 {fused_objective.launches} launches, all wide on {card}",
+          flush=True)
+    return dict(meta=meta, wall_seconds=wall,
+                launches=dict(k1=fused_objective.launches,
+                              k1_regime_calls=dict(fused_objective.regime_calls),
+                              k1_batch_calls=by_batch))
+
+
+def same_bits(a_dir, b_dir, prefix, segments):
+    """The segment files, the checkpoint's ``x`` and the trace of two
+    campaign directories are equal to the bit."""
+    import numpy as np
+    ckpt = "campaign_checkpoint" + ("_pt" if prefix == "pt" else "") + ".npz"
+    names = [f"{prefix}_segment_{s:04d}.npz" for s in range(segments)]
+    for name, keys in [(n, ("samples", "sample_logps")) for n in names] + [
+            (ckpt, ("x", "logp", "best_x"))]:
+        with np.load(os.path.join(a_dir, name)) as a, \
+                np.load(os.path.join(b_dir, name)) as b:
+            for k in keys:
+                if a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes():
+                    fail(f"resumed campaign differs from the uninterrupted "
+                         f"one in {name}:{k}")
+    with open(os.path.join(a_dir, "posterior_trace.csv"), "rb") as fa, \
+            open(os.path.join(b_dir, "posterior_trace.csv"), "rb") as fb:
+        if fa.read() != fb.read():
+            fail("resumed campaign's posterior_trace.csv differs")
+    return len(names) + 2
+
+
+def prune_campaign(out_dir):
+    """Keep a checked campaign's metadata and parameters, drop its bulk
+    (trace, segment files, checkpoint: ~70 MB at 8192 chains)."""
+    for name in os.listdir(out_dir):
+        if name.endswith((".npz", ".csv")):
+            os.remove(os.path.join(out_dir, name))
+
+
+def campaign_phases(cache, card):
+    """Phases 15-17: K1 against its plain version at the bench's and the
+    campaigns' shapes, the bench, the AM / DE campaigns at 8192 chains, the
+    8-rung PT campaign; each campaign killed and resumed to the bit."""
+    import shutil
+    t0 = time.perf_counter()
+    k1_compare = [compare(f"float32 dopri5@4 B={B} ({what} shape)", B,
+                          "float32", "dopri5", 4, FWD_TOL["float32"], cache,
+                          seed=300 + B)
+                  for B, what in ((4096, "bench micro"),
+                                  (CAMPAIGN_CHAINS, "campaign"))]
+    out = dict(k1_compare=k1_compare, bench=bench_phase(card))
+    base = os.path.join(HERE, "chiprun_out", "campaign")
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--chains", str(CAMPAIGN_CHAINS), "--thinning", "25",
+              "--burn-in", "50", "--skip-report", "--device", "cuda"]
+    full = ["--iterations", "200", "--segments", "4"]
+    half = ["--iterations", "100", "--segments", "2"]
+    for name, extra in (("am", []), ("pt", ["--rungs", "8"])):
+        d_full, d_kill = (os.path.join(base, f"{name}{s}")
+                          for s in ("", "_killed"))
+        # K1 calls: the start, 50 steps a segment, the float64 re-selection
+        runs = dict(
+            full=drive_campaign(name, common + extra + full + ["--out", d_full],
+                                card, 1 + 200 + 1),
+            killed=drive_campaign(f"{name} killed after 2 segments",
+                                  common + extra + half + ["--out", d_kill],
+                                  card, 1 + 100 + 1),
+            resumed=drive_campaign(f"{name} resumed",
+                                   common + extra + full + ["--out", d_kill],
+                                   card, 100 + 1))
+        if runs["resumed"]["meta"]["segments"] != 4:
+            fail(f"campaign {name}: resume ran {runs['resumed']['meta']}")
+        runs["files_equal"] = same_bits(d_full, d_kill,
+                                        "mh" if name == "am" else "pt", 4)
+        print(f"[campaign] {name}: killed after 2 of 4 segments and resumed: "
+              f"{runs['files_equal']} files equal to the uninterrupted run's "
+              f"to the bit", flush=True)
+        if name == "pt":
+            import numpy as np
+            meta = runs["full"]["meta"]
+            swap, betas = np.asarray(meta["swap_rate"]), \
+                np.asarray(meta["final_ladder"])
+            if len(swap) != 7 or not np.isfinite(swap).all() or \
+                    betas[0] != 1.0 or not (np.diff(betas) < 0).all():
+                fail(f"PT: swap rates {swap}, final ladder {betas}")
+            print(f"[campaign] pt: swap rates per pair {swap.round(4)}, final "
+                  f"ladder {betas.round(5)}", flush=True)
+        out[name] = runs
+        prune_campaign(d_full)
+        prune_campaign(d_kill)
+    out["de"] = dict(full=drive_campaign(
+        "de", common + full + ["--proposal", "de", "--out",
+                               os.path.join(base, "de")], card,
+        1 + 200 + 1))
+    prune_campaign(os.path.join(base, "de"))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[campaign] phases 15-17: {out['seconds']:.1f} s on {card}",
+          flush=True)
+    return out
+
+
+def campaign_paths(camp):
+    """K1's launches on phases 15-17, by path."""
+    paths = {"bench (benchmark_main --mode all, batch 4096)":
+             camp["bench"]["launches"]}
+    for name, label in (("am", "AM-MH"), ("pt", "PT 8 x 1024")):
+        for run in ("full", "killed", "resumed"):
+            paths[f"campaign {label} B=8192 ({run})"] = \
+                camp[name][run]["launches"]
+    paths["campaign DE-MC B=8192"] = camp["de"]["full"]["launches"]
+    return paths
+
+
 def main():
     k3_only = "--k3" in sys.argv[1:]
     main_only = "--main" in sys.argv[1:]
     fwd_only = "--fwd" in sys.argv[1:]
+    campaign_only = "--campaign" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -1347,6 +1549,17 @@ def main():
         print("chip_smoke --main: sepaihrd_main, the report and serovalid "
               "checked on the card; run without arguments for the whole "
               "check", flush=True)
+        return 0
+
+    if campaign_only:
+        results["campaign"] = campaign_phases(cache, card)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_campaign.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --campaign: the bench and the checkpointed AM, DE "
+              "and PT campaigns checked on the card; run without arguments "
+              "for the whole check", flush=True)
         return 0
 
     # 2b. the forward kernels in both regimes
@@ -1479,7 +1692,11 @@ def main():
     hill_counts = main_run["primary"]["hillmcmc"]["launches"]
     main_nuts = main_run["primary"]["nuts"]["launches"]
 
-    # 15. the kernels line, the card, the device line: each kernel's top-level
+    # 15-17. the bench, the checkpointed AM / DE and PT campaigns
+    camp = results["campaign"] = campaign_phases(cache, card)
+    camp_paths = campaign_paths(camp)
+
+    # 18. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
@@ -1518,7 +1735,8 @@ def main():
         "name": "sepaihrd_fused", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_fused.cu",
         "replaces": "mmidv1_tpu/ops/sepaihrd_pallas.py:364",
-        "launches": launches + hill_counts["k1"],
+        "launches": launches + hill_counts["k1"]
+        + sum(c["k1"] for c in camp_paths.values()),
         "max_abs_err": head["max_abs_err"], "max_rel_err": head["max_rel_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1526,10 +1744,11 @@ def main():
         "regime": head["regime"], "kernels_per_call": 1,
         "launches_by_regime": {
             r: k1_by_regime[r] + hill_counts["k1_regime_calls"][r]
+            + sum(c["k1_regime_calls"][r] for c in camp_paths.values())
             for r in k1_by_regime},
         "paths": {"psomcmc (calibrate_spain) B=1024": dict(
                       k1=launches, k1_regime_calls=k1_by_regime),
-                  "hillmcmc (sepaihrd_main)": hill_counts},
+                  "hillmcmc (sepaihrd_main)": hill_counts, **camp_paths},
         **chain_keys(fcase(1024, "float32")["K1"]["bounds"], head["ms"],
                      fwd["clock_mhz"]),
         "by_regime": by_regime("K1"),
@@ -1540,7 +1759,7 @@ def main():
         "configs": [{k: c[k] for k in ("case", "max_rel_err", "max_abs_err",
                                        "ms", "plain_ms", "bound_ms", "bound_by")}
                     for c in cases + main_run["primary"]["hillmcmc"][
-                        "k1_compare"]]}, {
+                        "k1_compare"] + camp["k1_compare"]]}, {
         "name": "sepaihrd_fwd_ckpt", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_adjoint.cu",
         "replaces": "mmidv1_tpu/ops/sepaihrd_adjoint.py:359",

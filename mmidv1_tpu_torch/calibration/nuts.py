@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .draws import seeded_generator
 from .param_space import ParameterSpace
 
 DELTA_MAX = 1000.0
@@ -114,11 +115,7 @@ class SeededDraws:
         self.dtype, self.device = dtype, torch.device(device)
 
     def _gen(self, *words) -> torch.Generator:
-        s = np.random.SeedSequence([self.seed & 0xFFFFFFFF, self.seed >> 32,
-                                    *words]).generate_state(2, np.uint32)
-        g = torch.Generator(device=self.device)
-        g.manual_seed((int(s[0]) << 31) ^ int(s[1]))
-        return g
+        return seeded_generator(self.seed, words, self.device)
 
     def _normal(self, g, shape):
         return torch.randn(shape, generator=g, dtype=self.dtype,

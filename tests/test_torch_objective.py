@@ -177,10 +177,13 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 20
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "report_anchor.py"])
+@pytest.mark.parametrize("script", [
+    "chip_smoke.py", "report_anchor.py",
+    "mmidv1_tpu_torch/cli/benchmark_main.py",
+    "mmidv1_tpu_torch/cli/production_campaign.py"])
 def test_card_scripts_import_no_jax(script):
-    """The scripts the card runs import nothing of JAX or of the JAX package,
-    at the top or inside a function."""
+    """The scripts and entry points the card runs import nothing of JAX or of
+    the JAX package, at the top or inside a function."""
     import ast
     with open(os.path.join(REPO, script)) as f:
         tree = ast.parse(f.read())
