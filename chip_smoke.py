@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fwd    # build, then phase 2b only: K1 and K2 (no ok line)
     python3 chip_smoke.py --main   # build, then phases 12-14 only (no ok line)
     python3 chip_smoke.py --campaign  # build, then phases 15-17 only (no ok line)
+    python3 chip_smoke.py --sir    # build, then phases 18-21 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -117,7 +118,46 @@ Phases (any failure exits non-zero before the final line):
      rung, 8192 rows a K1 call, wide): the same kill-and-resume check to
      the bit, finite swap rates per pair, a final ladder that falls from
      ``betas[0] == 1``;
- 18. print the kernels line and, last, the device line.
+ 18. the adaptive integrators on the card, each run held against the same
+     call on the host (rtol 1e-6 with a floor of 1e-8 x the largest entry,
+     the measure and bar of ``tests/test_integrators.py:113``; the reading
+     is printed; float32 runs at rtol 1e-5, the float32 parity test's bar,
+     since one accept/reject that rounds the other way moves a float32
+     trajectory by the tolerance): the ``sir_model`` solve (the committed
+     ``sir_input_parameters.txt``: rkf45, atol 1e-6, rtol 0) in float64 and
+     float32, the age-SIR baseline (100 days, dopri5, 1e-6) in both, and
+     SEPAIHRD ``solve(method="adaptive", atol=rtol=1e-9)`` on the Spain
+     grid in float64; then 8 lanes of different beta solved with
+     ``batch_dims=1`` against each lane solved alone (rtol 1e-12); the
+     attempts and seconds of each run;
+ 19. the four SIR mains through the dispatcher, ``python -m
+     mmidv1_tpu_torch.cli`` ``sir_model`` and ``sir_pop_var`` with ``--x64``
+     (every CSV value equals the same main run with ``--device cpu`` to
+     rtol 1e-9), ``sir_stochastic`` on the committed configuration (100
+     simulations x 36 000 binomial steps, float32: the population
+     conserved in every simulation and step, every value >= 0, p05 <=
+     median <= p95, the mean final R within 5 standard errors of a host run
+     of the same settings; the 100 per-simulation CSVs are deleted once
+     checked), and ``sir_age_structured_main`` at its defaults (peak
+     baseline > peak with the intervention > 0), into ``chiprun_out/``;
+     the seconds of each main;
+ 20. ``sir_age_structured_calibration_demo`` at 32 chains, depth cut to 2
+     hill iterations and 10 MH steps and the window to the first
+     ``SIR_DEMO_DAYS`` of its 306 days (on an H100 the phase took 68.4 s
+     at 306 days on one host and 68.8 s at 200 days on a slower one: one
+     objective call is 2.5-4.6 s of eager launches, set by the host); best
+     >= initial objective, both CSVs in the JAX formats, every sample
+     finite; the seconds of one objective call at the full 306 days, at 32
+     and at 1024 chains;
+ 21. K1 held against its plain version (as in phase 3) at the PSO swarm's
+     shape (512 chains), then ``run_pso`` on the full Spain grid, float32,
+     dopri5@4, 512 particles x 5 iterations, in each of QUANTUM,
+     LEVY_FLIGHT and HYBRID, K1's launches counted from 0 by chain count
+     and regime (all split: the swarm at 512, HYBRID's elitist probe at 3):
+     best > the start's log-likelihood, the best inside the bounds; one more
+     step from each run's final state on the card and on the host, fed the
+     same draws and fitness values, agrees to 1e-4 of the bounds' width;
+ 22. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -1476,11 +1516,456 @@ def campaign_paths(camp):
     return paths
 
 
+SIR_CONFIG = os.path.join(HERE, "data", "configuration",
+                          "sir_input_parameters.txt")
+# card vs host: tests/test_integrators.py:113's bar in float64; in float32
+# the bar of the float32 parity test (tests/test_torch_adaptive.py): one
+# accept/reject decision that rounds the other way moves the trajectory by
+# the solver's own tolerance (sir_model float32 read 5.1e-6 on an H100,
+# 459 attempts against the host's 456)
+ADAPTIVE_RTOL = {"float64": 1e-6, "float32": 1e-5}
+SIR_MAIN_RTOL = 1e-9     # the --x64 mains' CSVs, card vs host
+PSO_SWARM = 512
+SIR_DEMO_DAYS = 120      # phase 20's window (see the docstring)
+
+
+def rel_err(a, b):
+    """max |a - b| / (|b| + 1e-8 max |b|), the measure of
+    ``tests/test_integrators.py``; inf unless both are finite."""
+    import numpy as np
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        return float("inf")
+    return float(np.max(np.abs(a - b) / (np.abs(b) + 1e-8 * np.abs(b).max())))
+
+
+def adaptive_runs(name, solve, dtype_name, card):
+    """``solve(device, stats)`` on the card and on the host: the reading
+    and, for each, the controller's attempts and seconds."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        stats = {}
+        t0 = time.perf_counter()
+        y = solve(dev, stats).cpu().numpy()
+        out[dev] = dict(y=y, attempts=stats["attempts"],
+                        seconds=time.perf_counter() - t0)
+    err, bar = rel_err(out["cuda"]["y"], out["cpu"]["y"]), \
+        ADAPTIVE_RTOL[dtype_name]
+    print(f"[adaptive] {name} {dtype_name}: card {out['cuda']['attempts']} "
+          f"attempts in {out['cuda']['seconds']:.3f} s, host "
+          f"{out['cpu']['attempts']} in {out['cpu']['seconds']:.3f} s; card vs "
+          f"host {err:.3e} (bar {bar:.0e}) on {card}", flush=True)
+    if not err <= bar:
+        fail(f"adaptive {name} {dtype_name}: card vs host {err:.3e} > "
+             f"{bar:.0e}")
+    return dict(case=f"{name} {dtype_name}", rel_err=err, bar=bar,
+                **{f"{d}_{k}": out[d][k] for d in out
+                   for k in ("attempts", "seconds")})
+
+
+def adaptive_phase(cache, card):
+    """Phase 18: the adaptive integrators, card against host."""
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.data import (CalibrationData,
+                                       read_scalar_sir_parameters)
+    from mmidv1_tpu_torch.data.contact_matrix import read_matrix_from_csv
+    from mmidv1_tpu_torch.models import sepaihrd, sir
+    from mmidv1_tpu_torch.ode import integrate_times
+
+    t_phase = time.perf_counter()
+    prm = read_scalar_sir_parameters(SIR_CONFIG)
+    p = sir.SIRParams(N=prm["N"], beta=prm["beta"], gamma=prm["gamma"])
+    ts = np.arange(0.0, 366.0)
+    y0 = [prm["S0"], prm["I0"], prm["R0"]]
+    kw = dict(atol=prm["eps"], rtol=0.0, dt0=prm["h"], method="rkf45")
+    runs = []
+    for dtype in (torch.float64, torch.float32):
+        runs.append(adaptive_runs(
+            "sir_model solve",
+            lambda dev, st: integrate_times(
+                lambda t, y: sir.sir_rhs(t, y, p),
+                torch.tensor(y0, dtype=dtype, device=dev), ts, stats=st, **kw),
+            str(dtype)[6:], card))
+
+    C = read_matrix_from_csv(os.path.join(HERE, "data", "contacts.csv"), 4, 4)
+    data = CalibrationData.from_csv(
+        os.path.join(HERE, "data", "processed", "processed_data.csv"),
+        "2020-03-01", "2020-12-31")
+    N, I0 = data.population_by_age, data.initial_active_cases()
+    y0_age = np.stack([N - I0, I0, np.zeros_like(I0)])
+    for dtype in (torch.float64, torch.float32):
+        def age_solve(dev, st, dtype=dtype):
+            params = sir.make_age_sir_params(N=N, C=C, q=0.05, gamma=[0.1] * 4,
+                                             dtype=dtype, device=dev)
+            y = torch.as_tensor(y0_age).to(dev, dtype)
+            return sir.solve_age_sir(params, y, np.arange(0.0, 101.0),
+                                     method="adaptive", stats=st)
+        runs.append(adaptive_runs("age-SIR baseline 100 days dopri5 1e-6",
+                                  age_solve, str(dtype)[6:], card))
+
+    def spain_solve(dev, st):
+        pipe = (cache["float64"] if dev == "cuda" and "float64" in cache else
+                load_spain_pipeline(HERE, dtype=torch.float64, device=dev))
+        y = sepaihrd.runup_seeded_state(pipe.params, None)
+        return sepaihrd.solve(pipe.params, y, pipe.ts, method="adaptive",
+                              atol=1e-9, rtol=1e-9, stats=st)
+    runs.append(adaptive_runs("SEPAIHRD Spain grid (326 points) atol=rtol=1e-9",
+                              spain_solve, "float64", card))
+
+    # one controller a lane: 8 lanes of different beta, each as if alone
+    betas = np.linspace(0.15, 1.6, 8)
+    lane_p = sir.SIRParams(N=prm["N"], beta=torch.tensor(betas, device="cuda"),
+                           gamma=prm["gamma"])
+    st = {}
+    t0 = time.perf_counter()
+    batch = integrate_times(lambda t, y: sir.sir_rhs(t, y, lane_p),
+                            torch.tensor(y0, dtype=torch.float64,
+                                         device="cuda").expand(8, 3),
+                            ts, batch_dims=1, stats=st, **kw).cpu().numpy()
+    batch_s = time.perf_counter() - t0
+    alone, worst = [], 0.0
+    for i, beta in enumerate(betas):
+        one = {}
+        pi = sir.SIRParams(N=prm["N"], beta=float(beta), gamma=prm["gamma"])
+        y = integrate_times(lambda t, y: sir.sir_rhs(t, y, pi),
+                            torch.tensor(y0, dtype=torch.float64,
+                                         device="cuda"), ts, stats=one,
+                            **kw).cpu().numpy()
+        diff = np.abs(batch[:, i] - y)
+        if not (diff <= 1e-12 * np.abs(y)).all():
+            fail(f"adaptive: lane {i} of the batch differs from its solve "
+                 f"alone by {diff.max():.3e}")
+        worst = max(worst, float((diff / np.maximum(np.abs(y), 1e-300)).max()))
+        alone.append(one["attempts"])
+    print(f"[adaptive] 8 lanes, batch_dims=1, float64: {st['attempts']} "
+          f"attempts in {batch_s:.3f} s (alone: {alone}); every lane equals "
+          f"its solve alone, worst rel diff {worst:.3e} (bar 1e-12)",
+          flush=True)
+    out = dict(runs=runs, lanes=dict(betas=betas.tolist(),
+                                     attempts=st["attempts"],
+                                     seconds=batch_s, alone_attempts=alone,
+                                     worst_rel_diff=worst))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def dispatch(argv):
+    """``python -m mmidv1_tpu_torch.cli argv...`` in this process: its
+    printout and seconds; fails unless it exits 0."""
+    import contextlib
+    import io
+    from mmidv1_tpu_torch.cli.__main__ import main as cli_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    seconds = time.perf_counter() - t0
+    sys.stdout.write(buf.getvalue())
+    if rc != 0:
+        fail(f"{' '.join(argv[:1])} exited {rc}")
+    return buf.getvalue(), seconds
+
+
+def read_csv(path):
+    import numpy as np
+    with open(path) as f:
+        header = f.readline().strip()
+    return header, np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+
+
+def sir_mains_phase(card):
+    """Phase 19: the four SIR mains through the dispatcher."""
+    import shutil
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.data import read_scalar_sir_parameters
+    from mmidv1_tpu_torch.models import sir
+
+    t_phase = time.perf_counter()
+    base = os.path.join(HERE, "chiprun_out", "sir_mains")
+    shutil.rmtree(base, ignore_errors=True)
+    out = {}
+    for cmd, csv in (("sir_model", "sir_result.csv"),
+                     ("sir_pop_var", "sir_variable_population_result.csv")):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            _, res[dev] = dispatch([cmd, "--x64", "--device", dev, "--params",
+                                    SIR_CONFIG, "--output-dir",
+                                    os.path.join(base, f"{cmd}_{dev}")])
+        (hc, c), (hh, h) = (read_csv(os.path.join(base, f"{cmd}_{d}", csv))
+                            for d in ("cuda", "cpu"))
+        diff = np.abs(c - h)
+        err = float((diff / np.where(h == 0, 1.0, np.abs(h))).max()) \
+            if c.shape == h.shape else float("inf")
+        print(f"[sir-mains] {cmd} --x64: card {res['cuda']:.2f} s, host "
+              f"{res['cpu']:.2f} s; CSV {c.shape}, card vs host {err:.3e} (bar "
+              f"{SIR_MAIN_RTOL:.0e}) on {card}", flush=True)
+        if hc != hh or not err <= SIR_MAIN_RTOL:
+            fail(f"{cmd}: card CSV differs from the host's ({hc!r} / {hh!r}, "
+                 f"{err:.3e})")
+        out[cmd] = dict(card_seconds=res["cuda"], host_seconds=res["cpu"],
+                        rel_err=err, rows=int(c.shape[0]))
+
+    # the committed stochastic run: 100 simulations x 36 000 steps, float32
+    prm = read_scalar_sir_parameters(SIR_CONFIG)
+    d = os.path.join(base, "sir_stochastic")
+    _, secs = dispatch(["sir_stochastic", "--device", "cuda", "--params",
+                        SIR_CONFIG, "--output-dir", d])
+    n_sims, h = int(prm["numSimulations"]), max(prm["h"], 0.01)
+    steps = int(np.floor((prm["t_end"] - prm["t_start"]) / h))
+    sims = sorted(f for f in os.listdir(d) if f.startswith("stochastic_sir_sim_"))
+    if len(sims) != min(n_sims, 100):
+        fail(f"sir_stochastic wrote {len(sims)} per-simulation CSVs")
+    final_R = []
+    for name in sims:
+        hdr, t = read_csv(os.path.join(d, name))
+        if hdr != "t,S,I,R" or t.shape != (steps + 1, 4):
+            fail(f"sir_stochastic {name}: {hdr!r} {t.shape}")
+        if (t[:, 1:] < 0).any() or (t[:, 1:].sum(axis=1) != prm["N"]).any():
+            fail(f"sir_stochastic {name}: a negative count or the population "
+                 "not conserved")
+        final_R.append(t[-1, 3])
+    hdr, st = read_csv(os.path.join(d, "stochastic_sir_stats.csv"))
+    median, p05, p95 = st[:, 4:7], st[:, 7:10], st[:, 10:13]
+    if st.shape != (steps + 1, 13) or not ((p05 <= median).all()
+                                           and (median <= p95).all()):
+        fail(f"sir_stochastic stats {st.shape}: p05 <= median <= p95 broken")
+    for name in sims:
+        os.remove(os.path.join(d, name))
+    t0 = time.perf_counter()
+    host = sir.run_stochastic_sir(
+        sir.SIRParams(N=prm["N"], beta=prm["beta"], gamma=prm["gamma"]),
+        [prm["S0"], prm["I0"], prm["R0"]], prm["t_start"], prm["t_end"], h,
+        n_sims, generator=torch.Generator().manual_seed(1),
+        dtype=torch.float32, device="cpu").numpy()[:, -1, 2]
+    host_s = time.perf_counter() - t0
+    card_R = np.asarray(final_R)
+    se = float(np.sqrt(card_R.var(ddof=1) / len(card_R)
+                       + host.var(ddof=1) / len(host)))
+    gap = abs(float(card_R.mean()) - float(host.mean()))
+    print(f"[sir-mains] sir_stochastic: {n_sims} simulations x {steps} steps "
+          f"on the card, {secs:.2f} s with the CSVs; population conserved, all "
+          f">= 0, p05 <= median <= p95; mean final R card {card_R.mean():.3f} "
+          f"vs host {host.mean():.3f} (host run {host_s:.2f} s): gap "
+          f"{gap:.3f} = {gap / se:.2f} SE (bar 5) on {card}", flush=True)
+    if not gap <= 5.0 * se:
+        fail(f"sir_stochastic: mean final R {card_R.mean()} vs host "
+             f"{host.mean()}, {gap / se:.2f} standard errors")
+    out["sir_stochastic"] = dict(seconds=secs, simulations=n_sims, steps=steps,
+                                 mean_final_R=float(card_R.mean()),
+                                 host_mean_final_R=float(host.mean()),
+                                 gap_se=gap / se, host_seconds=host_s)
+
+    text, secs = dispatch(["sir_age_structured_main", "--device", "cuda",
+                           "--project-root", HERE, "--output-dir",
+                           os.path.join(base, "sir_age_structured_main")])
+    peak = lambda k: float(text.split(f"peak_infected_{k}")[1].split()[0])
+    base_peak, int_peak = peak("baseline"), peak("intervention")
+    print(f"[sir-mains] sir_age_structured_main: {secs:.2f} s; peak "
+          f"{base_peak} baseline > {int_peak} with the intervention on {card}",
+          flush=True)
+    if not base_peak > int_peak > 0:
+        fail(f"sir_age_structured_main peaks {base_peak} / {int_peak}")
+    out["sir_age_structured_main"] = dict(seconds=secs, peak_baseline=base_peak,
+                                          peak_intervention=int_peak)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def sir_demo_phase(card):
+    """Phase 20: the age-SIR calibration demo, and its objective's seconds
+    a call at 32 and 1024 chains."""
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.cli import sir_calibration_demo as demo
+
+    t_phase = time.perf_counter()
+    d = os.path.join(HERE, "chiprun_out", "sir_calibration_demo")
+    chains, mcmc_iters = 32, 10
+    argv = ["--device", "cuda", "--project-root", HERE, "--chains",
+            str(chains), "--hill-iters", "2", "--mcmc-iters", str(mcmc_iters),
+            "--burn-in", "2", "--num-days", str(SIR_DEMO_DAYS),
+            "--output-dir", d]
+    t0 = time.perf_counter()
+    s = demo.run(argv)
+    wall = time.perf_counter() - t0
+    hdr, samples = read_csv(s["mcmc_samples"])
+    bhdr, best = read_csv(s["best_fit"])
+    want = ("sample_index,objective_value,q,scale_C_total,gamma_0,gamma_1,"
+            "gamma_2,gamma_3")
+    if hdr != want or samples.shape != (chains * mcmc_iters, 8) or \
+            bhdr != ("Time,simulated_I_0_30,simulated_I_30_60,"
+                     "simulated_I_60_80,simulated_I_80_plus") or \
+            best.shape != (SIR_DEMO_DAYS, 5):
+        fail(f"sir demo CSVs: {hdr!r} {samples.shape}, {bhdr!r} {best.shape}")
+    if not (s["samples_finite"] and np.isfinite(samples).all()
+            and s["best_logl"] >= s["initial_logl"]):
+        fail(f"sir demo: best {s['best_logl']} vs initial {s['initial_logl']}"
+             f", samples finite {s['samples_finite']}")
+    args = demo.build_parser().parse_args(["--project-root", HERE])
+    _root, space, params0, _y0, _ts, ll, _ = demo.setup(
+        args, torch.device("cuda"), torch.float32)
+    theta0 = space.extract(params0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    call_s = {}
+    for B in (chains, 1024):
+        thetas = theta0 + 0.01 * space.sigmas * torch.randn(
+            (B, space.dim), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = ll(thetas)
+        torch.cuda.synchronize()
+        call_s[B] = time.perf_counter() - t0
+        if not torch.isfinite(v).all():
+            fail(f"sir objective at {B} chains is not finite")
+    print(f"[sir-demo] sir_age_structured_calibration_demo, {SIR_DEMO_DAYS} "
+          f"days, {chains} chains, 2 hill iterations, {mcmc_iters} MH steps: "
+          f"{wall:.1f} s (hill {s['phase1_seconds']:.1f} s, MH "
+          f"{s['phase2_seconds']:.1f} s); best {s['best_logl']:.6e} >= initial "
+          f"{s['initial_logl']:.6e}; one objective call at 306 days "
+          f"{call_s[chains]:.3f} s at {chains} chains, {call_s[1024]:.3f} s at "
+          f"1024 on {card}",
+          flush=True)
+    return dict(s, wall_seconds=wall,
+                objective_call_seconds={str(B): v for B, v in call_s.items()},
+                seconds=time.perf_counter() - t_phase)
+
+
+def pso_variants_phase(cache, card):
+    """Phase 21: PSO's QUANTUM, LEVY_FLIGHT and HYBRID through K1."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import CLAMP
+    from mmidv1_tpu_torch.calibration.pso import (PSOConfig, PSOState,
+                                                  PSOVariant, _neighbor_table,
+                                                  _step_draws, pso_step,
+                                                  run_pso)
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.ops import build_objective_fused, fused_objective
+
+    t_phase = time.perf_counter()
+    k1_compare = compare(f"float32 dopri5@4 B={PSO_SWARM} (PSO swarm shape)",
+                         PSO_SWARM, "float32", "dopri5", 4, FWD_TOL["float32"],
+                         cache, seed=400)
+    if "float32" not in cache:
+        cache["float32"] = load_spain_pipeline(HERE, dtype=torch.float32,
+                                               device="cuda")
+    pipe = cache["float32"]
+    ll = build_objective_fused(pipe.space, pipe.params, pipe.data, pipe.ts,
+                               substeps=4, tableau="dopri5",
+                               constraint_mode=CLAMP, device="cuda")
+    ll0 = float(ll(pipe.theta0[None, :])[0])
+    host = lambda t: t.cpu() if torch.is_tensor(t) else t
+    host_space = dataclasses.replace(pipe.space, lower=pipe.space.lower.cpu(),
+                                     upper=pipe.space.upper.cpu(),
+                                     sigmas=pipe.space.sigmas.cpu())
+    width = (pipe.space.upper - pipe.space.lower).cpu().numpy()
+    runs = {}
+    for variant in (PSOVariant.QUANTUM, PSOVariant.LEVY_FLIGHT,
+                    PSOVariant.HYBRID):
+        cfg = dataclasses.replace(
+            PSOConfig.from_settings(pipe.settings.get("pso", {})),
+            swarm_size=PSO_SWARM, iterations=5, variant=variant)
+        # opposition-based start, one call an iteration; HYBRID's elitist
+        # probe (3 points) at iteration 0
+        expected = {PSO_SWARM: {forward_pick(PSO_SWARM): (
+            2 if cfg.use_opposition_learning else 1) + cfg.iterations}}
+        if variant == PSOVariant.HYBRID:
+            expected[3] = {forward_pick(3): 1}
+        gen = torch.Generator(device="cuda").manual_seed(int(variant))
+        zero_counts()
+        t0 = time.perf_counter()
+        res = run_pso(ll, pipe.space, cfg, generator=gen, theta0=pipe.theta0)
+        best = float(res.best_f)
+        wall = time.perf_counter() - t0
+        by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
+        in_bounds = bool(pipe.space.in_bounds(res.best_x))
+        print(f"[pso] {variant.name}: {PSO_SWARM} particles x {cfg.iterations} "
+              f"iterations, {wall:.2f} s; best logL {best:.6e} > start "
+              f"{ll0:.6e}, in bounds {in_bounds}; K1 by chain count and regime "
+              f"{by_batch} (expected {expected}) on {card}", flush=True)
+        if by_batch != expected or any(r != 1 for v in by_batch.values()
+                                       for r in v):
+            fail(f"PSO {variant.name}: K1 ran {by_batch}, expected {expected}"
+                 f", all split")
+        # particle 0 starts at theta0, so only a strict gain shows a search
+        if not (best > ll0 and in_bounds):
+            fail(f"PSO {variant.name}: best {best} vs start {ll0}, in bounds "
+                 f"{in_bounds}")
+        runs[variant.name] = dict(best_logl=best, start_logl=ll0,
+                                  wall_seconds=wall,
+                                  launches=dict(
+                                      k1=fused_objective.launches,
+                                      k1_regime_calls=dict(
+                                          fused_objective.regime_calls),
+                                      k1_batch_calls=by_batch))
+        # one more step from the run's final state, on the card and on the
+        # host, fed the same draws and the same fitness values (K1's, read
+        # on the card): the update's arithmetic. The quantum move reaches
+        # log(1 / u) <= 27.6 widths before its clamp, so a few float32 ulps
+        # there are ~1e-5 of the width; a wrong update is of order 1
+        dgen = torch.Generator(device="cuda").manual_seed(100 + int(variant))
+        rand = lambda *shape: torch.rand(shape, generator=dgen,
+                                         dtype=torch.float32, device="cuda")
+        randn = lambda *shape: torch.randn(shape, generator=dgen,
+                                           dtype=torch.float32, device="cuda")
+        draws = _step_draws(cfg, PSO_SWARM, pipe.space.dim, rand, randn, dgen,
+                            "cuda")
+        seen = []
+
+        def card_fit(x):
+            seen.append(ll(x))
+            return seen[-1]
+        it = cfg.iterations - 1
+        tab = _neighbor_table(cfg)
+        on_card = pso_step(res.final_state, draws, it, cfg, pipe.space,
+                           card_fit, tab)
+        on_host = pso_step(PSOState(*map(host, res.final_state)),
+                           type(draws)(*map(host, draws)), it, cfg, host_space,
+                           lambda x: seen[0].cpu(), tab)
+        step_err = {}
+        for key in ("x", "v", "pbest_x", "gbest_x"):
+            a = getattr(on_card, key).cpu().numpy()
+            b = getattr(on_host, key).numpy()
+            step_err[key] = float((np.abs(a - b) / width).max())
+            if not step_err[key] <= 1e-4:
+                fail(f"PSO {variant.name}: one step's {key} on the card differs "
+                     f"from the host's by {step_err[key]:.3e} of the bounds' "
+                     f"width (bar 1e-4)")
+        for key in ("pbest_f", "gbest_f", "success_count", "total_updates"):
+            if not torch.equal(getattr(on_card, key).cpu(),
+                               getattr(on_host, key)):
+                fail(f"PSO {variant.name}: one step's {key} on the card differs "
+                     f"from the host's")
+        print(f"[pso] {variant.name}: one step card vs host, same draws and "
+              f"fitness: max diff / bounds' width {step_err}", flush=True)
+        runs[variant.name]["step_vs_host"] = step_err
+    return dict(k1_compare=k1_compare, runs=runs,
+                seconds=time.perf_counter() - t_phase)
+
+
+def sir_phases(cache, card):
+    """Phases 18-21."""
+    t0 = time.perf_counter()
+    out = dict(adaptive=adaptive_phase(cache, card),
+               mains=sir_mains_phase(card), demo=sir_demo_phase(card),
+               pso=pso_variants_phase(cache, card))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[sir] phases 18-21: {out['seconds']:.1f} s (18: "
+          f"{out['adaptive']['seconds']:.1f}, 19: {out['mains']['seconds']:.1f}"
+          f", 20: {out['demo']['seconds']:.1f}, 21: "
+          f"{out['pso']['seconds']:.1f}) on {card}", flush=True)
+    return out
+
+
 def main():
     k3_only = "--k3" in sys.argv[1:]
     main_only = "--main" in sys.argv[1:]
     fwd_only = "--fwd" in sys.argv[1:]
     campaign_only = "--campaign" in sys.argv[1:]
+    sir_only = "--sir" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -1560,6 +2045,17 @@ def main():
         print("chip_smoke --campaign: the bench and the checkpointed AM, DE "
               "and PT campaigns checked on the card; run without arguments "
               "for the whole check", flush=True)
+        return 0
+
+    if sir_only:
+        results["sir"] = sir_phases(cache, card)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_sir.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --sir: the adaptive integrators, the SIR mains, the "
+              "SIR calibration demo and PSO's three variants checked on the "
+              "card; run without arguments for the whole check", flush=True)
         return 0
 
     # 2b. the forward kernels in both regimes
@@ -1696,7 +2192,12 @@ def main():
     camp = results["campaign"] = campaign_phases(cache, card)
     camp_paths = campaign_paths(camp)
 
-    # 18. the kernels line, the card, the device line: each kernel's top-level
+    # 18-21. the adaptive integrators, the SIR mains and demo, PSO's variants
+    sir_run = results["sir"] = sir_phases(cache, card)
+    camp_paths.update({f"pso {name} B={PSO_SWARM} (run_pso)": r["launches"]
+                       for name, r in sir_run["pso"]["runs"].items()})
+
+    # 22. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
@@ -1759,7 +2260,8 @@ def main():
         "configs": [{k: c[k] for k in ("case", "max_rel_err", "max_abs_err",
                                        "ms", "plain_ms", "bound_ms", "bound_by")}
                     for c in cases + main_run["primary"]["hillmcmc"][
-                        "k1_compare"] + camp["k1_compare"]]}, {
+                        "k1_compare"] + camp["k1_compare"]
+                    + [sir_run["pso"]["k1_compare"]]]}, {
         "name": "sepaihrd_fwd_ckpt", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_adjoint.cu",
         "replaces": "mmidv1_tpu/ops/sepaihrd_adjoint.py:359",

@@ -8,7 +8,9 @@ base parameters (eager PyTorch under ``torch.inference_mode``: the JAX package
 jit-compiles the same replay with ``jax.vmap``); metrics and trajectories come back to the host, where the
 quantile bands, the pooled summaries and the CSV emission run in NumPy
 exactly as in the JAX package (the batching is the same, so the pooled
-per-batch statistics are too).
+per-batch statistics are too). The eager replay is launch-bound, so one
+solve takes ``REPLAY_GROUP`` batches at once and is split into batches of
+``batch_size`` on the host.
 
 Produces the reference's full output tree (see
 :mod:`mmidv1_tpu_torch.analysis.writers`): posterior-predictive bands,
@@ -33,6 +35,11 @@ from ..params import SEPAIHRDParams
 from . import aggregate, writers
 from .metrics import essential_metrics, seroprevalence_trajectory
 from .reproduction import rt_trajectory
+
+# batches replayed by one solve: each solve costs about the same number of
+# launches whatever its width, and 8 x 1024 draws of the Spain grid hold
+# about 2 GB of float32 trajectory
+REPLAY_GROUP = 8
 
 
 def _replay_fn(space: ParameterSpace, base_params: SEPAIHRDParams,
@@ -167,14 +174,19 @@ def _report(samples, space, base_params, data, ts, output_dir, *,
 
     all_batch_stats = []
     rt_all, sero_all = [], []
-    for bi, start in enumerate(range(0, len(sel), batch_size)):
-        m, rt, sero = replay(on_device(sel[start:start + batch_size]))
-        cols = aggregate.metric_table({k: _host(v) for k, v in m.items()},
-                                      n_ages)
-        emit(writers.write_batch_metrics,
-             os.path.join(output_dir, "mcmc_batches", f"batch_{bi}.csv"),
-             cols, n_ages)
-        all_batch_stats.append(aggregate.aggregate_batch_metrics(cols))
+    bi = 0
+    for start in range(0, len(sel), batch_size * REPLAY_GROUP):
+        m, rt, sero = replay(on_device(
+            sel[start:start + batch_size * REPLAY_GROUP]))
+        m = {k: _host(v) for k, v in m.items()}
+        for sub in range(0, rt.shape[0], batch_size):
+            cols = aggregate.metric_table(
+                {k: v[sub:sub + batch_size] for k, v in m.items()}, n_ages)
+            emit(writers.write_batch_metrics,
+                 os.path.join(output_dir, "mcmc_batches", f"batch_{bi}.csv"),
+                 cols, n_ages)
+            all_batch_stats.append(aggregate.aggregate_batch_metrics(cols))
+            bi += 1
         rt_all.append(_host(rt))
         sero_all.append(_host(sero))
 

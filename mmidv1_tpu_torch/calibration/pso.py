@@ -5,20 +5,20 @@ Port of ``mmidv1_tpu/calibration/pso.py``, re-design of
 ``src/model/optimizers/ParticleSwarmOptimizer.cpp``). One iteration updates the
 entire swarm with batched tensor ops and one batched objective call.
 
-Ported (same math, reference line refs):
-- variants STANDARD and ADAPTIVE: the velocity update + vmax clamp +
-  reflective boundary handling with velocity dampening (:575-618)
+Same math as the JAX package (reference line refs):
+- variants STANDARD / QUANTUM / ADAPTIVE / LEVY_FLIGHT / HYBRID (:376-410):
+  the velocity update + vmax clamp + reflective boundary handling with
+  velocity dampening (:575-618), the quantum attractor/log-uniform jump
+  update with contracting beta (:620-653), and Mantegna Levy-flight kicks
+  (:655-680, :908-934)
 - topologies GLOBAL_BEST / LOCAL_BEST ring(k=2) / VON_NEUMANN grid /
   RANDOM_DYNAMIC (:836-906), as static neighbour tables or per-iteration draws
 - evolutionary-state estimation and the four omega/c1/c2 regimes (:427-525)
 - opposition-based initialization (:527-574)
 - elitist learning: Gaussian polish of the best particle every 5 iterations
-  (ADAPTIVE), its three sigma-halved probes in one batch (:706-740)
+  (ADAPTIVE, HYBRID), its three sigma-halved probes in one batch (:706-740)
 - stagnation-triggered restart keeping the elite particles (:742-814)
 - pbest covariance exported as ``final_cov`` for the Phase-2 MCMC warm start
-
-QUANTUM, LEVY_FLIGHT and HYBRID raise ``NotImplementedError``: they belong
-to a later slice of the port.
 
 Random draws: the step functions take their draws as tensors (``PSODraws``,
 ``RestartDraws``, the elitist ``noise``); :func:`run_pso` makes them from a
@@ -53,9 +53,6 @@ class Topology(enum.IntEnum):
     RANDOM_DYNAMIC = 3
 
 
-_PORTED_VARIANTS = (PSOVariant.STANDARD, PSOVariant.ADAPTIVE)
-
-
 @dataclasses.dataclass(frozen=True)
 class PSOConfig:
     """Settings mirror ``pso_settings.txt`` / ``configure`` (:10-103)."""
@@ -73,6 +70,8 @@ class PSOConfig:
     use_opposition_learning: bool = True
     use_adaptive_parameters: bool = True
     restart_threshold: float = 1e-6
+    quantum_beta: float = 1.0
+    levy_alpha: float = 1.5
     max_stagnation: int = 20
     elite_count: int = 3
 
@@ -93,6 +92,8 @@ class PSOConfig:
             use_opposition_learning=bool(g("use_opposition_learning", 1.0)),
             use_adaptive_parameters=bool(g("use_adaptive_parameters", 1.0)),
             restart_threshold=float(g("restart_threshold", 1e-6)),
+            quantum_beta=float(g("quantum_beta", 1.0)),
+            levy_alpha=float(g("levy_alpha", 1.5)),
             max_stagnation=int(g("max_stagnation", 20)),
             # beyond-reference convenience: the reference hard-codes
             # keep_best_count = 3 (ParticleSwarmOptimizer.hpp:509)
@@ -124,11 +125,20 @@ class PSOResult(NamedTuple):
 
 
 class PSODraws(NamedTuple):
-    """The random numbers of one :func:`pso_step`."""
-    u: torch.Tensor                   # (3,) uniforms of the adaptive regime
-    r1: torch.Tensor                  # (S, d) cognitive uniforms
-    r2: torch.Tensor                  # (S, d) social uniforms
-    neighbours: Optional[torch.Tensor] = None   # (S, 4) RANDOM_DYNAMIC picks
+    """The random numbers of one :func:`pso_step`; a variant reads the ones
+    it uses (the JAX step's ``split(key, 8)`` key in brackets)."""
+    u: torch.Tensor                   # (3,) uniforms of the adaptive regime [0]
+    r1: Optional[torch.Tensor] = None  # (S, d) cognitive uniforms [2]
+    r2: Optional[torch.Tensor] = None  # (S, d) social uniforms [2]
+    neighbours: Optional[torch.Tensor] = None   # (S, 4) RANDOM_DYNAMIC picks [1]
+    # the quantum update [2] (QUANTUM) or [5] (HYBRID), split in three
+    phi: Optional[torch.Tensor] = None      # (S, 1) uniforms
+    u_log: Optional[torch.Tensor] = None    # (S, d) uniforms in [1e-12, 1)
+    u_sign: Optional[torch.Tensor] = None   # (S, d) uniforms
+    levy_pick: Optional[torch.Tensor] = None  # (S,) uniforms [3] (LEVY_FLIGHT)
+    levy_u: Optional[torch.Tensor] = None   # (S, d) Mantegna normals [4], split
+    levy_v: Optional[torch.Tensor] = None   # (S, d) in two
+    hybrid_u: Optional[torch.Tensor] = None  # (S,) uniforms [6] (HYBRID)
 
 
 class RestartDraws(NamedTuple):
@@ -139,13 +149,6 @@ class RestartDraws(NamedTuple):
     u_unif: torch.Tensor     # (S, d) uniforms
     u_pick: torch.Tensor     # (S, d) uniforms
     u_v: torch.Tensor        # (S, d) uniforms
-
-
-def _check_variant(cfg: PSOConfig):
-    if cfg.variant not in _PORTED_VARIANTS:
-        raise NotImplementedError(
-            f"PSO variant {cfg.variant.name}: only STANDARD and ADAPTIVE are "
-            "ported; QUANTUM, LEVY_FLIGHT and HYBRID come in a later slice")
 
 
 def _neighbor_table(cfg: PSOConfig) -> Optional[np.ndarray]:
@@ -177,6 +180,36 @@ def _neighbor_table(cfg: PSOConfig) -> Optional[np.ndarray]:
             tab[i] = neigh
         return tab
     return None
+
+
+def _levy_sigma(alpha: float) -> float:
+    """Mantegna's sigma_u (:908-920)."""
+    num = math.gamma(1 + alpha) * math.sin(math.pi * alpha / 2)
+    den = math.gamma((1 + alpha) / 2) * alpha * 2 ** ((alpha - 1) / 2)
+    return (num / den) ** (1.0 / alpha)
+
+
+def _levy_vector(u: torch.Tensor, v: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Mantegna Levy steps from two standard-normal draws ``u``, ``v``."""
+    u = u * _levy_sigma(alpha)
+    v = torch.clamp_min(torch.abs(v), 1e-10)
+    return torch.clamp(u / v ** (1.0 / alpha), -100.0, 100.0)
+
+
+def _success_rate(state: PSOState) -> torch.Tensor:
+    """Per-particle success rate, in float32 whatever the swarm's dtype: the
+    JAX package divides its int32 counters, which gives float32 there."""
+    return (state.success_count.to(torch.float32) /
+            torch.clamp_min(state.total_updates, 1).to(torch.float32))
+
+
+def _levy_step_scale(state: PSOState, cfg: PSOConfig) -> float:
+    """0.01 * (1 - stagnation / max_stagnation), rounded in float32 at each
+    operation as the JAX package computes it from its int32 stagnation
+    counter (on the host: the counter is a Python int here)."""
+    f32 = np.float32
+    return float(f32(0.01) * (f32(1.0) - f32(state.stagnation)
+                              / f32(cfg.max_stagnation)))
 
 
 def _evolutionary_factor(state: PSOState) -> torch.Tensor:
@@ -228,6 +261,15 @@ def _standard_update(x, v, pbest_x, lbest_x, omega, c1, c2, lo, hi, r1, r2):
     return torch.clamp(x_new, lo, hi), v_new
 
 
+def _quantum_update(x, pbest_x, gbest_x, mean_best, beta: float, lo, hi,
+                    phi, u_log, u_sign):
+    attractor = phi * pbest_x + (1 - phi) * gbest_x[None, :]
+    L = 2.0 * beta * torch.abs(mean_best[None, :] - x)
+    sign = torch.where(u_sign < 0.5, 1.0, -1.0).to(x.dtype)
+    x_new = attractor + sign * L * torch.log(1.0 / u_log)
+    return torch.clamp(x_new, lo, hi)
+
+
 def _bounds(space: ParameterSpace, dtype):
     return space.lower.to(dtype), space.upper.to(dtype)
 
@@ -235,8 +277,7 @@ def _bounds(space: ParameterSpace, dtype):
 def pso_step(state: PSOState, draws: PSODraws, it: int, cfg: PSOConfig,
              space: ParameterSpace, fitness_batch: Callable,
              neighbor_tab: Optional[np.ndarray]) -> PSOState:
-    """One swarm update + evaluation (STANDARD and ADAPTIVE variants)."""
-    _check_variant(cfg)
+    """One swarm update + evaluation, in the variant ``cfg.variant``."""
     S, d = state.x.shape
     dtype, dev = state.x.dtype, state.x.device
     lo, hi = _bounds(space, dtype)
@@ -261,8 +302,45 @@ def pso_step(state: PSOState, draws: PSODraws, it: int, cfg: PSOConfig,
         best = torch.argmax(state.pbest_f[tab], dim=1)
         lbest_x = state.pbest_x[torch.gather(tab, 1, best[:, None])[:, 0]]
 
-    x_new, v_new = _standard_update(state.x, state.v, state.pbest_x, lbest_x,
-                                    omega, c1, c2, lo, hi, draws.r1, draws.r2)
+    def quantum():
+        beta = cfg.quantum_beta * (1.0 - 0.5 * it / cfg.iterations)
+        return _quantum_update(state.x, state.pbest_x, state.gbest_x,
+                               torch.mean(state.pbest_x, dim=0), beta, lo, hi,
+                               draws.phi, draws.u_log, draws.u_sign)
+
+    if cfg.variant in (PSOVariant.STANDARD, PSOVariant.ADAPTIVE):
+        x_new, v_new = _standard_update(state.x, state.v, state.pbest_x,
+                                        lbest_x, omega, c1, c2, lo, hi,
+                                        draws.r1, draws.r2)
+    elif cfg.variant == PSOVariant.QUANTUM:
+        x_new, v_new = quantum(), state.v
+    elif cfg.variant == PSOVariant.LEVY_FLIGHT:
+        # gbest (NOT the topology's lbest) is deliberate reference parity:
+        # levyFlightUpdate receives gbest_position regardless of topology
+        # (ParticleSwarmOptimizer.cpp:387-388), unlike STANDARD/ADAPTIVE
+        x_new, v_new = _standard_update(state.x, state.v, state.pbest_x,
+                                        state.gbest_x.expand(S, d), omega, c1,
+                                        c2, lo, hi, draws.r1, draws.r2)
+        levy_prob = 0.1 * (1.0 + _success_rate(state))
+        do_levy = draws.levy_pick < levy_prob
+        levy = _levy_vector(draws.levy_u, draws.levy_v, cfg.levy_alpha)
+        kick = _levy_step_scale(state, cfg) * (hi - lo) * levy
+        x_new = torch.where(do_levy[:, None],
+                            torch.clamp(x_new + kick, lo, hi), x_new)
+    else:  # HYBRID: per-particle choice by success rate (:399-409)
+        x_std, v_std = _standard_update(state.x, state.v, state.pbest_x,
+                                        lbest_x, omega, c1, c2, lo, hi,
+                                        draws.r1, draws.r2)
+        x_qtm = quantum()
+        success_rate = _success_rate(state)
+        levy = _levy_vector(draws.levy_u, draws.levy_v, cfg.levy_alpha)
+        kick = _levy_step_scale(state, cfg) * (hi - lo) * levy
+        x_lvy = torch.clamp(x_std + kick, lo, hi)
+        use_levy = (success_rate < 0.3) & (draws.hybrid_u < 0.5)
+        use_qtm = (success_rate > 0.7) & (draws.hybrid_u < 0.3)
+        x_new = torch.where(use_levy[:, None], x_lvy,
+                            torch.where(use_qtm[:, None], x_qtm, x_std))
+        v_new = torch.where(use_qtm[:, None], state.v, v_std)
 
     f_new = fitness_batch(x_new)
     improved = f_new > state.pbest_f
@@ -288,9 +366,7 @@ def _elitist_learning(state: PSOState, noise: torch.Tensor, cfg: PSOConfig,
     best_i = torch.argmax(state.pbest_f)
     bx = state.pbest_x[best_i]
     bf = state.pbest_f[best_i]
-    success_rate = (state.success_count[best_i].to(dtype) /
-                    torch.clamp_min(state.total_updates[best_i], 1).to(dtype))
-    sigma0 = 0.1 * torch.exp(-2.0 * success_rate)
+    sigma0 = 0.1 * torch.exp(-2.0 * _success_rate(state)[best_i])
     sigmas = sigma0 * torch.tensor([1.0, 0.5, 0.25], dtype=dtype,
                                    device=bx.device)
     trials = torch.clamp(bx[None, :] + sigmas[:, None] * (hi - lo) * noise, lo, hi)
@@ -387,6 +463,30 @@ def init_pso_state(space: ParameterSpace, cfg: PSOConfig, fitness_batch,
         stagnation=0, evals=evals)
 
 
+def _step_draws(cfg: PSOConfig, S: int, d: int, rand, randn, generator,
+                dev) -> PSODraws:
+    """The draws one :func:`pso_step` of ``cfg.variant`` reads."""
+    V = PSOVariant
+    standard = cfg.variant != V.QUANTUM
+    quantum = cfg.variant in (V.QUANTUM, V.HYBRID)
+    levy = cfg.variant in (V.LEVY_FLIGHT, V.HYBRID)
+    return PSODraws(
+        u=rand(3),
+        r1=rand(S, d) if standard else None,
+        r2=rand(S, d) if standard else None,
+        neighbours=(torch.randint(0, S, (S, 4), generator=generator,
+                                  device=dev)
+                    if cfg.topology == Topology.RANDOM_DYNAMIC else None),
+        phi=rand(S, 1) if quantum else None,
+        # JAX's uniform(minval=1e-12): log(1 / u) stays finite
+        u_log=1e-12 + (1.0 - 1e-12) * rand(S, d) if quantum else None,
+        u_sign=rand(S, d) if quantum else None,
+        levy_pick=rand(S) if cfg.variant == V.LEVY_FLIGHT else None,
+        levy_u=randn(S, d) if levy else None,
+        levy_v=randn(S, d) if levy else None,
+        hybrid_u=rand(S) if cfg.variant == V.HYBRID else None)
+
+
 def run_pso(loglik_batch: Callable, space: ParameterSpace, cfg: PSOConfig, *,
             generator: torch.Generator, theta0: Optional[torch.Tensor] = None,
             dtype: Optional[torch.dtype] = None,
@@ -394,7 +494,6 @@ def run_pso(loglik_batch: Callable, space: ParameterSpace, cfg: PSOConfig, *,
     """Run PSO; the objective ``loglik_batch((S, d)) -> (S,)`` is maximized.
     Every draw comes from ``generator`` (on the space's device).
     ``initial_state`` skips swarm initialization (resume)."""
-    _check_variant(cfg)
     dtype = dtype or space.dtype
     dev = space.device
     S, d = cfg.swarm_size, space.dim
@@ -426,14 +525,11 @@ def run_pso(loglik_batch: Callable, space: ParameterSpace, cfg: PSOConfig, *,
                 u_pick=rand(S, d), u_v=rand(S, d))
             state = _restart_swarm(state, rd, cfg, space, loglik_batch)
 
-        draws = PSODraws(
-            u=rand(3), r1=rand(S, d), r2=rand(S, d),
-            neighbours=(torch.randint(0, S, (S, 4), generator=generator,
-                                      device=dev)
-                        if cfg.topology == Topology.RANDOM_DYNAMIC else None))
-        state = pso_step(state, draws, it, cfg, space, loglik_batch,
-                         neighbor_tab)
-        if cfg.variant == PSOVariant.ADAPTIVE and it % 5 == 0:
+        state = pso_step(state, _step_draws(cfg, S, d, rand, randn, generator,
+                                            dev),
+                         it, cfg, space, loglik_batch, neighbor_tab)
+        if cfg.variant in (PSOVariant.ADAPTIVE, PSOVariant.HYBRID) and \
+                it % 5 == 0:
             state = _elitist_learning(state, randn(3, d), cfg, space,
                                       loglik_batch)
         hist.append(state.gbest_f)

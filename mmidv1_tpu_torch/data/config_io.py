@@ -13,6 +13,8 @@ runs unchanged:
 - :func:`save_calibration_results`  <- ``saveCalibrationResults`` (:51-162), whose
   output round-trips through :func:`read_sepaihrd_parameters` (calibrated params
   carry a trailing ``# [C]`` marker which the reader tolerates).
+- :func:`read_scalar_sir_parameters` <- ``loadModelParameters`` of the scalar
+  SIR mains (``src/base/main/ModelParameters.cpp:5-36``)
 """
 
 from __future__ import annotations
@@ -293,3 +295,35 @@ def save_calibration_results(path: str, params: SEPAIHRDParams,
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def read_scalar_sir_parameters(path: str) -> Dict[str, float]:
+    """``input_parameters.txt`` loader for the scalar SIR mains.
+
+    Reference: ``loadModelParameters`` (``src/base/main/ModelParameters.cpp:5-36``):
+    ``key value`` lines, '#' and '//' comments skipped, unknown keys ignored.
+    Returns the reference's defaults overlaid with the file's values.
+    """
+    out: Dict[str, float] = {
+        "N": 1000.0, "beta": 0.4, "gamma": 0.04, "S0": 999.0, "I0": 1.0,
+        "R0": 0.0, "t_start": 0.0, "t_end": 360.0, "h": 0.01, "eps": 1e-6,
+        "numSimulations": 100.0, "B": 0.02, "mu": 0.01,
+    }
+    try:
+        f = open(path, "r")
+    except OSError as e:
+        raise FileIOException("read_scalar_sir_parameters",
+                              f"Could not load model parameters from {path}: {e}")
+    with f:
+        for raw in f:
+            line = raw.strip()
+            if not line or line.startswith("#") or line.startswith("//"):
+                continue
+            tokens = line.split()
+            if len(tokens) < 2 or tokens[0] not in out:
+                continue
+            try:
+                out[tokens[0]] = float(tokens[1])
+            except ValueError:
+                continue
+    return out

@@ -147,19 +147,23 @@ def interval_beta_eff(params: SEPAIHRDParams, ts: torch.Tensor) -> torch.Tensor:
 
 
 def solve(params: SEPAIHRDParams, y0: torch.Tensor, ts, *, method="fixed",
-          tableau="dopri5", substeps=4, freeze_schedules=True) -> torch.Tensor:
-    """Integrate over the output grid ``ts`` with ``substeps`` equal RK steps
-    per interval; returns ``(len(ts), ..., 11, A)``.
+          tableau="dopri5", substeps=4, atol=1e-6, rtol=1e-6, dt0=1.0,
+          freeze_schedules=True, stats=None) -> torch.Tensor:
+    """Integrate over the output grid ``ts``; returns ``(len(ts), ..., 11, A)``.
+
+    ``method``: "fixed" (``substeps`` equal RK steps per interval; the
+    throughput and differentiable path) or "adaptive" (odeint
+    ``integrate_times`` semantics at ``atol`` / ``rtol`` from ``dt0``, one
+    controller for the whole of ``y0``, reference ``Simulator.cpp:60-150``;
+    ``stats`` as in :func:`mmidv1_tpu_torch.ode.integrate_times`).
 
     ``freeze_schedules`` evaluates beta(t)*kappa(t) once per output interval
     (at the midpoint), exact when schedule breakpoints align with ``ts``.
     """
-    from ..ode import integrate_times_fixed
+    from ..ode import integrate_times, integrate_times_fixed
 
-    if method != "fixed":
-        raise NotImplementedError(
-            f"method {method!r}: only the fixed-grid integrator is ported; "
-            "the adaptive one belongs to a later slice of the port")
+    if method not in ("fixed", "adaptive"):
+        raise ValueError(f"unknown method {method!r}")
     ts = torch.as_tensor(ts, dtype=y0.dtype, device=y0.device)
     if freeze_schedules:
         frozen = FrozenRHS(params)
@@ -168,6 +172,9 @@ def solve(params: SEPAIHRDParams, y0: torch.Tensor, ts, *, method="fixed",
     else:
         ctx = None
         f = lambda t, y: rhs(t, y, params)
+    if method == "adaptive":
+        return integrate_times(f, y0, ts, atol=atol, rtol=rtol, dt0=dt0,
+                               method=tableau, interval_ctx=ctx, stats=stats)
     return integrate_times_fixed(f, y0, ts, substeps=substeps, method=tableau,
                                  interval_ctx=ctx)
 

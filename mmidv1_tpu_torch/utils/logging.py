@@ -24,6 +24,24 @@ _LEVELS = {
 _FMT = "%(asctime)s [%(levelname)s] [%(component)s] %(message)s"
 
 
+class _StdoutHandler(logging.StreamHandler):
+    """Console sink that writes to ``sys.stdout`` as it is when a record is
+    emitted, not as it was when the singleton was built: a redirection made
+    later (``contextlib.redirect_stdout``, a test's output capture) sees
+    every record, whichever caller built the logger first."""
+
+    def __init__(self):
+        super().__init__(sys.stdout)
+
+    @property
+    def stream(self):
+        return sys.stdout
+
+    @stream.setter
+    def stream(self, value):
+        pass
+
+
 class Logger:
     """Process-wide logger facade (singleton by module instance)."""
 
@@ -34,7 +52,7 @@ class Logger:
         self._logger = logging.getLogger("mmidv1_tpu_torch")
         self._logger.setLevel(logging.INFO)
         self._logger.propagate = False
-        handler = logging.StreamHandler(sys.stdout)
+        handler = _StdoutHandler()
         handler.setFormatter(logging.Formatter(_FMT, datefmt="%Y-%m-%d %H:%M:%S"))
         self._logger.addHandler(handler)
         self._file_handler: Optional[logging.Handler] = None

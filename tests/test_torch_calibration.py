@@ -219,16 +219,10 @@ def test_restart_and_elitist_match_jax_given_draws(problem):
     assert ts_.evals == int(js.evals) and ts_.stagnation == int(js.stagnation)
 
 
-def test_unported_variants_raise(problem):
+def test_calibrate_rejects_unknown_algorithms(problem):
     tspace = problem["tspace"]
     gen = torch.Generator().manual_seed(0)
-    for v in (tpso.PSOVariant.QUANTUM, tpso.PSOVariant.LEVY_FLIGHT,
-              tpso.PSOVariant.HYBRID):
-        with pytest.raises(NotImplementedError):
-            tpso.run_pso(problem["clamp"][1], tspace,
-                         tpso.PSOConfig(variant=v), generator=gen)
-    # hill climbing is ported (tests/test_torch_hill.py); the menu still
-    # refuses what the reference's does not offer
+    # the menu refuses what the reference's does not offer
     with pytest.raises(ValueError):
         tcal.calibrate(None, None, tspace, None, generator=gen,
                        algorithm="annealing")
@@ -237,8 +231,7 @@ def test_unported_variants_raise(problem):
                        algorithm="hillmcmc", phase1="annealing")
 
 
-@pytest.mark.parametrize("variant", [tpso.PSOVariant.STANDARD,
-                                     tpso.PSOVariant.ADAPTIVE])
+@pytest.mark.parametrize("variant", list(tpso.PSOVariant))
 def test_calibrate_psomcmc_end_to_end_cpu(problem, variant):
     """A small CPU psomcmc run through the fused objective's plain version:
     finite output that beats the starting log-likelihood."""

@@ -180,7 +180,11 @@ def test_port_imports_without_jax():
 @pytest.mark.parametrize("script", [
     "chip_smoke.py", "report_anchor.py",
     "mmidv1_tpu_torch/cli/benchmark_main.py",
-    "mmidv1_tpu_torch/cli/production_campaign.py"])
+    "mmidv1_tpu_torch/cli/production_campaign.py",
+    "mmidv1_tpu_torch/cli/sir_mains.py",
+    "mmidv1_tpu_torch/cli/sir_age_structured_main.py",
+    "mmidv1_tpu_torch/cli/sir_calibration_demo.py",
+    "mmidv1_tpu_torch/cli/__main__.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts and entry points the card runs import nothing of JAX or of
     the JAX package, at the top or inside a function."""
