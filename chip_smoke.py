@@ -7,6 +7,7 @@
     python3 chip_smoke.py --main   # build, then phases 12-14 only (no ok line)
     python3 chip_smoke.py --campaign  # build, then phases 15-17 only (no ok line)
     python3 chip_smoke.py --sir    # build, then phases 18-21 only (no ok line)
+    python3 chip_smoke.py --parallel  # build, then phase 22 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -157,7 +158,30 @@ Phases (any failure exits non-zero before the final line):
      best > the start's log-likelihood, the best inside the bounds; one more
      step from each run's final state on the card and on the host, fed the
      same draws and fitness values, agrees to 1e-4 of the bounds' width;
- 22. print the kernels line and, last, the device line.
+ 22. the sharded runners of ``mmidv1_tpu_torch.parallel`` on the full
+     Spain-2020 grid, dopri5@4. Ranks are processes spawned here, started
+     by ``multihost.initialize`` over a file store: 2 ``gloo`` ranks
+     sharing the card, and 1 ``nccl`` rank. Each path runs unsharded here
+     first, its launches counted from 0, then on the ranks, each counting
+     its own: (a) AM-MH, 8192 chains x 40 steps, the covariance every 10,
+     float64, on 2 gloo ranks (rtol 1e-9; K1 wide at 4096 a rank) and on 1
+     nccl rank (no value may differ in any bit); (b) DE-MC at the same size
+     on 2 gloo ranks; (c) PT, 8 rungs x 1024 chains (4096 rows a rank,
+     wide); (d) PSO at ``pso_settings.txt`` (VON_NEUMANN), 512 x 5 (K1
+     split at 256; ``best_f`` rtol 1e-8); (e) NUTS at ``nuts_settings.txt``
+     and logit-NUTS for 5 iterations, 64 chains (K2 + K3 at 32 a rank, K3
+     in the regime it runs at 64); (f) MALA 64 x 20. Every global result
+     of a rank equals the other rank's to the bit and the unsharded run's
+     to rtol 1e-9 (relative, floored at 1e-9 x the field's largest entry);
+     every rank launches each kernel as often as the unsharded run, in the
+     regime the rule picks for its local chain count. (g) AM-MH, 8192
+     float32 chains x 200 steps (the covariance each 25), timed unsharded,
+     on 2 gloo ranks and on 1 nccl rank: chain-steps/s, the milliseconds a
+     step spends in collectives (a second run, the card synchronized
+     around each; a collective's time includes waiting for the other
+     rank), and the card's idle share over one 10-step block
+     (torch.profiler, the ranks' kernels merged);
+ 23. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -1960,12 +1984,567 @@ def sir_phases(cache, card):
     return out
 
 
+# ------------------------------------------------------------------ phase 22
+# The sharded runners of mmidv1_tpu_torch/parallel on the card: ranks are
+# processes spawned here, sharing the one card over gloo (2 ranks) or alone
+# over nccl (1 rank), each held against the unsharded run of the same path
+# in this process, from the same global draws.
+PAR_CHAINS = 8192          # AM / DE-MC; PT is 8 rungs x 1024
+PAR_SMALL = 64             # NUTS, logit-NUTS, MALA
+PAR_TIMED_STEPS = 200
+PAR_TIMEOUT = 420          # seconds a spawned group may take in all
+PAR_SEED = 22
+
+
+def par_objective(pipes, dtype, mode, grad=False):
+    """The full-grid dopri5@4 objective (K1) or value_and_grad engine (K2 +
+    K3) of ``pipes[dtype]``, built once."""
+    from mmidv1_tpu_torch.ops import (build_objective_fused,
+                                      build_objective_fused_grad)
+    key = (dtype, mode, grad)
+    if key not in pipes["objectives"]:
+        pipe = pipes[dtype]
+        build = build_objective_fused_grad if grad else build_objective_fused
+        pipes["objectives"][key] = build(
+            pipe.space, pipe.params, pipe.data, pipe.ts, substeps=4,
+            tableau="dopri5", constraint_mode=mode, device="cuda")
+    return pipes["objectives"][key]
+
+
+def par_gen():
+    import torch
+    return torch.Generator(device="cuda").manual_seed(PAR_SEED)
+
+
+def par_mh(mesh, pipes, proposal="am", dtype="float64", iterations=40,
+           thinning=10, n_chains=PAR_CHAINS):
+    """AM-MH (or DE-MC) over ``n_chains`` chains, the covariance
+    re-estimated at each block of ``thinning`` steps (every 10 steps from
+    step 10 by default)."""
+    from mmidv1_tpu_torch.calibration.mh import MHConfig, run_mh
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.parallel import run_mh_sharded
+    pipe = pipes[dtype]
+    cfg = MHConfig(iterations=iterations, burn_in=0, adaptation_period=10,
+                   thinning=thinning, proposal=proposal)
+    kw = dict(n_chains=n_chains, generator=par_gen(), jitter=0.1)
+    ll = par_objective(pipes, dtype, REFLECT)
+    res = (run_mh(ll, pipe.space, pipe.theta0, cfg, **kw) if mesh is None
+           else run_mh_sharded(ll, pipe.space, pipe.theta0, cfg, mesh=mesh,
+                               **kw))
+    return res, ("samples", "sample_logps", "best_x", "best_logp",
+                 "acceptance_rate", "final_cov", "final_scale")
+
+
+def par_pt(mesh, pipes):
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.calibration.tempering import PTConfig, run_pt
+    from mmidv1_tpu_torch.parallel import run_pt_gspmd
+    pipe = pipes["float64"]
+    cfg = PTConfig(iterations=40, burn_in=20, adaptation_period=10,
+                   thinning=10, n_rungs=8)
+    kw = dict(n_chains=PAR_CHAINS // 8, generator=par_gen(), jitter=0.1)
+    ll = par_objective(pipes, "float64", REFLECT)
+    res = (run_pt(ll, pipe.space, pipe.theta0, cfg, **kw) if mesh is None
+           else run_pt_gspmd(ll, pipe.space, pipe.theta0, cfg, mesh=mesh,
+                             **kw))
+    return res, ("samples", "sample_logps", "best_x", "best_logp",
+                 "acceptance_rate", "swap_rate")
+
+
+def par_pso(mesh, pipes):
+    import dataclasses
+    from mmidv1_tpu_torch.calibration.param_space import CLAMP
+    from mmidv1_tpu_torch.calibration.pso import PSOConfig, run_pso
+    from mmidv1_tpu_torch.parallel import run_pso_sharded
+    pipe = pipes["float64"]
+    cfg = dataclasses.replace(PSOConfig.from_settings(pipe.settings["pso"]),
+                              swarm_size=PSO_SWARM, iterations=5)
+    ll = par_objective(pipes, "float64", CLAMP)
+    kw = dict(generator=par_gen(), theta0=pipe.theta0)
+    res = (run_pso(ll, pipe.space, cfg, **kw) if mesh is None else
+           run_pso_sharded(ll, pipe.space, cfg, mesh=mesh, **kw))
+    return res, ("best_x", "best_f", "history_best_f")
+
+
+def par_nuts(mesh, pipes, logit=False):
+    """NUTS at nuts_settings.txt, or logit-NUTS for 5 iterations, through
+    the K2 / K3 engine on the CLAMP objective."""
+    import dataclasses
+    import torch
+    from mmidv1_tpu_torch.calibration.nuts import (NUTSConfig,
+                                                   logit_transform, run_nuts,
+                                                   run_nuts_logit)
+    from mmidv1_tpu_torch.calibration.param_space import CLAMP
+    from mmidv1_tpu_torch.parallel import run_nuts_gspmd, run_nuts_logit_gspmd
+    pipe = pipes["float64"]
+    space = pipe.space
+    vg = par_objective(pipes, "float64", CLAMP, grad=True)
+    cfg = NUTSConfig.from_settings(pipe.settings["nuts"])
+    fields = ("samples", "sample_logps", "best_x", "best_logp", "step_sizes",
+              "mean_accept", "mean_depth")
+    if not logit:
+        kw = dict(seed=PAR_SEED, n_chains=PAR_SMALL, value_and_grad_batch=vg)
+        res = (run_nuts(None, space, pipe.theta0, cfg, **kw) if mesh is None
+               else run_nuts_gspmd(None, space, pipe.theta0, cfg, mesh=mesh,
+                                   **kw))
+        return res, fields
+    cfg = dataclasses.replace(cfg, iterations=5)
+    mu = logit_transform(pipe.theta0, space.lower, space.upper)
+    kw = dict(mu=mu, scale=0.05 * torch.eye(space.dim, dtype=mu.dtype,
+                                            device=mu.device),
+              seed=PAR_SEED, n_chains=PAR_SMALL, value_and_grad_batch=vg)
+    res = (run_nuts_logit(None, space, cfg, **kw) if mesh is None else
+           run_nuts_logit_gspmd(None, space, cfg, mesh=mesh, **kw))
+    return res, fields
+
+
+def par_mala(mesh, pipes):
+    from mmidv1_tpu_torch.calibration.mala import MALAConfig, run_mala
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.parallel import run_mala_gspmd
+    pipe = pipes["float64"]
+    vg = par_objective(pipes, "float64", REFLECT, grad=True)
+    cfg = MALAConfig(iterations=20, burn_in=10, adaptation_period=10,
+                     initial_step_size=0.02)
+    kw = dict(n_chains=PAR_SMALL, generator=par_gen(), jitter=0.05,
+              value_and_grad_batch=vg)
+    res = (run_mala(None, pipe.space, pipe.theta0, cfg, **kw) if mesh is None
+           else run_mala_gspmd(None, pipe.space, pipe.theta0, cfg, mesh=mesh,
+                               **kw))
+    return res, ("samples", "sample_logps", "best_x", "best_logp",
+                 "acceptance_rate", "final_cov", "final_eps")
+
+
+# path -> (runner, kwargs, {field: rtol}). Float64: a sharded run differs
+# from the unsharded one only by the order of the collectives' sums (one
+# nccl rank: in no bit).
+PAR_PATHS = {
+    "am": (par_mh, {}, dict(samples=1e-9, sample_logps=1e-9, best_logp=1e-9,
+                            acceptance_rate=1e-12, final_cov=1e-8,
+                            final_scale=1e-9)),
+    "de": (par_mh, dict(proposal="de"), dict(samples=1e-9, sample_logps=1e-9,
+                                             best_logp=1e-9,
+                                             acceptance_rate=1e-12)),
+    "pt": (par_pt, {}, dict(samples=1e-9, sample_logps=1e-9, best_logp=1e-9,
+                            swap_rate=1e-12, acceptance_rate=1e-12)),
+    "pso": (par_pso, {}, dict(best_f=1e-8, best_x=1e-8)),
+    "nuts": (par_nuts, {}, dict(samples=1e-9, sample_logps=1e-9,
+                                step_sizes=1e-9, best_logp=1e-9)),
+    "nuts_logit": (par_nuts, dict(logit=True), dict(
+        samples=1e-9, sample_logps=1e-9, step_sizes=1e-9)),
+    "mala": (par_mala, {}, dict(samples=1e-9, sample_logps=1e-9,
+                                best_logp=1e-9, final_cov=1e-8)),
+}
+
+
+def launch_counts():
+    """Every kernel's launches since ``zero_counts``, by chain count and
+    regime (K3: by regime)."""
+    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_forward_ckpt,
+                                      fused_objective)
+    return dict(
+        k1=fused_objective.launches,
+        k1_regime_calls=dict(fused_objective.regime_calls),
+        k1_batch_calls={B: dict(v) for B, v in
+                        fused_objective.batch_calls.items()},
+        k2=fused_forward_ckpt.launches,
+        k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
+        k2_batch_calls={B: dict(v) for B, v in
+                        fused_forward_ckpt.batch_calls.items()},
+        k3=fused_adjoint.launches, k3_kernels=fused_adjoint.kernel_launches,
+        k3_regime_calls=dict(fused_adjoint.regime_calls))
+
+
+def par_drive(name, mesh, pipes):
+    """One path, its launches counted from 0: ``(arrays, counts,
+    seconds)``."""
+    import torch
+    fn, kw, _tol = PAR_PATHS[name]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, fields = fn(mesh, pipes, **kw)
+    arrays = {f: getattr(res, f).detach().cpu().numpy() for f in fields}
+    return arrays, launch_counts(), time.perf_counter() - t0
+
+
+class CollectiveTimer:
+    """Time every ``all_reduce`` of the mesh (the card synchronized before
+    and after each), while in a ``with`` block."""
+
+    def __init__(self):
+        self.calls, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        self._saved = all_reduce = dist.all_reduce
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = all_reduce(*a, **k)
+            torch.cuda.synchronize()
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+            return out
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce = self._saved
+
+
+def par_timed(mesh, pipes):
+    """(g): AM-MH over PAR_CHAINS float32 chains, PAR_TIMED_STEPS steps in
+    blocks of 25 (a sample kept and the covariance re-estimated a block):
+    wall and chain-steps/s;
+    the same run with every collective timed; on a mesh, the same steps
+    over this rank's chains as an unsharded run of its own, every rank at
+    once (the card shared, no collective; on one rank, the unsharded run in
+    the rank's process); then
+    torch.profiler over one 10-step block (its covariance update
+    included): this rank's kernel intervals and the window's ends, on the
+    profiler's clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    kw = dict(dtype="float32", iterations=PAR_TIMED_STEPS, thinning=25)
+
+    def run(sharded=True, **over):
+        if mesh is not None:       # start together
+            mesh.psum(torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = par_mh(mesh if sharded else None, pipes, **dict(kw, **over))
+        float(res.best_logp)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run(iterations=10, thinning=10)                 # warm-up
+    zero_counts()
+    wall = run()
+    counts = launch_counts()
+    with CollectiveTimer() as ct:
+        wall_timed = run()
+    wall_alone = None
+    if mesh is not None:
+        wall_alone = run(sharded=False,
+                         n_chains=PAR_CHAINS // mesh.world_size)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_block = run(iterations=10, thinning=10)
+    events = list(prof.profiler.kineto_results.events())
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in events if e.device_type() == DeviceType.CUDA)
+    if not kernels:
+        fail("torch.profiler reported no device time in phase 22")
+    window = (min(e.start_ns() for e in events),
+              max(e.start_ns() + e.duration_ns() for e in events))
+    return dict(wall=wall, wall_collectives_timed=wall_timed,
+                wall_alone=wall_alone,
+                collective_calls=ct.calls, collective_seconds=ct.seconds,
+                block_wall=wall_block, kernels=kernels, window=window,
+                counts=counts)
+
+
+def busy_ns(intervals):
+    """The length of the union of ``(start, end)`` intervals."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def idle_share(timed):
+    """The card's idle share over the profiled window of one or more ranks
+    (their kernels merged, the window from the first event to the last)."""
+    window = (min(t["window"][0] for t in timed),
+              max(t["window"][1] for t in timed))
+    busy = busy_ns([k for t in timed for k in t["kernels"]])
+    return 1.0 - busy / (window[1] - window[0]), busy / 1e6, \
+        (window[1] - window[0]) / 1e6
+
+
+def par_load_pipes():
+    import torch
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    pipes = {d: load_spain_pipeline(HERE, dtype=getattr(torch, d),
+                                    device="cuda")
+             for d in ("float64", "float32")}
+    pipes["objectives"] = {}
+    return pipes
+
+
+def _par_rank(rank, world, backend, store, out, plan):
+    """One spawned rank of phase 22: ``multihost.initialize`` over a file
+    store, then every path of ``plan`` and, last, the timed run. Rank 0
+    keeps the (global) arrays; every rank its launch counts."""
+    import datetime
+    import hashlib
+    import pickle
+    import traceback
+    sys.path.insert(0, HERE)
+    import torch.distributed as dist
+    from mmidv1_tpu_torch.parallel import ensemble_mesh, multihost
+    status, payload = "error", None
+    # every rank is on this host: rendezvous over the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    try:
+        multihost.initialize(f"file://{store}", world, rank, backend=backend,
+                             device="cuda",
+                             timeout=datetime.timedelta(seconds=120))
+        mesh = ensemble_mesh()
+        pipes = par_load_pipes()
+        paths = {}
+        for name in plan:
+            arrays, counts, secs = par_drive(name, mesh, pipes)
+            digest = {f: hashlib.sha256(a.tobytes()).hexdigest()
+                      for f, a in arrays.items()}
+            paths[name] = dict(counts=counts, seconds=secs, digest=digest,
+                               arrays=arrays if rank == 0 else None)
+        payload = dict(paths=paths, timed=par_timed(mesh, pipes),
+                       backend=dist.get_backend(), device=str(mesh.device))
+        status = "ok"
+    except BaseException:
+        payload = traceback.format_exc()
+    finally:
+        with open(out, "wb") as f:
+            pickle.dump((status, payload), f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    sys.exit(0 if status == "ok" else 1)
+
+
+def par_spawn(world, backend, plan, work):
+    """Spawn ``world`` ranks on the card, wait for them (PAR_TIMEOUT), and
+    return each one's payload; fail on a timeout or a rank's error."""
+    import multiprocessing as mp
+    import pickle
+    store = os.path.join(work, f"store_{backend}_{world}")
+    outs = [os.path.join(work, f"rank{r}_{backend}_{world}.pkl")
+            for r in range(world)]
+    for path in [store] + outs:
+        if os.path.exists(path):
+            os.remove(path)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_par_rank,
+                         args=(r, world, backend, store, outs[r], plan))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join(30)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    payloads, errors = [], []
+    for r, path in enumerate(outs):
+        if not os.path.exists(path):
+            errors.append(f"rank {r} wrote no result (exit code "
+                          f"{procs[r].exitcode})")
+            continue
+        with open(path, "rb") as f:
+            status, payload = pickle.load(f)
+        os.remove(path)
+        if status != "ok":
+            errors.append(f"rank {r}:\n{payload}")
+        payloads.append(payload)
+    if hung:
+        errors.insert(0, f"{backend} ranks {hung} still running after "
+                         f"{PAR_TIMEOUT} s")
+    if errors:
+        fail(f"phase 22, {world} {backend} rank(s):\n" + "\n".join(errors))
+    return payloads
+
+
+def par_compare(label, got, want, tol):
+    """A sharded path's global arrays against the unsharded run's: the
+    largest relative error by field (floored at 1e-9 x the field's largest
+    entry) within ``tol[field]``, or with ``tol`` None no value differing
+    in any bit; returns both numbers by field."""
+    import numpy as np
+    out = {}
+    for f, w in want.items():
+        g = got[f]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"phase 22 {label}: {f} is {g.shape} {g.dtype}, the "
+                 f"unsharded run's {w.shape} {w.dtype}")
+        gb = g.reshape(-1).view(np.uint8).reshape(g.size, -1)
+        wb = w.reshape(-1).view(np.uint8).reshape(w.size, -1)
+        differ = int(np.count_nonzero((gb != wb).any(axis=1)))
+        w64, g64 = w.astype(np.float64), g.astype(np.float64)
+        scale = np.maximum(np.abs(w64), 1e-9 * np.abs(w64).max())
+        rel = float((np.abs(g64 - w64) / np.where(scale > 0, scale, 1.0))
+                    .max()) if g.size else 0.0
+        out[f] = dict(max_rel_err=rel, values_differing=differ)
+        if tol is None and differ:
+            fail(f"phase 22 {label}: {differ} values of {f} differ from the "
+                 f"unsharded run's; one rank must give the same bits")
+        if tol is not None and f in tol and not rel <= tol[f]:
+            fail(f"phase 22 {label}: {f} off the unsharded run by {rel:.3e} "
+                 f"(bar {tol[f]:.0e})")
+    return out
+
+
+def par_expect_regimes(label, counts, B, want_k3=None):
+    """Every K1 / K2 call of a rank at its local chain count ``B`` (or
+    ``K * B`` rows for PT, passed as B) in the regime the rule picks there;
+    K3 all in the regime ``want_k3``."""
+    pick = forward_pick(B)
+    for k in ("k1", "k2"):
+        calls = counts[f"{k}_batch_calls"]
+        if counts[k] and (set(calls) != {B} or set(calls[B]) != {pick}):
+            fail(f"phase 22 {label}: {k.upper()} calls by chain count and "
+                 f"regime {calls}, expected all at {B} in "
+                 f"{REGIMES[pick]}")
+    if want_k3 is not None and counts["k3"] and \
+            counts["k3_regime_calls"] != {want_k3: counts["k3"],
+                                          3 - want_k3: 0}:
+        fail(f"phase 22 {label}: K3 calls by regime "
+             f"{counts['k3_regime_calls']}, expected all in regime {want_k3}")
+
+
+def parallel_phase(card):
+    """Phase 22: every sharded runner on the card against its unsharded
+    run, 2 gloo ranks sharing the card and 1 nccl rank; then AM-MH at 8192
+    float32 chains timed unsharded, on 2 gloo ranks and on 1 nccl rank."""
+    import shutil
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "chiprun_out", "parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pipes = par_load_pipes()
+    ref = {}
+    for name in PAR_PATHS:
+        arrays, counts, secs = par_drive(name, None, pipes)
+        ref[name] = dict(arrays=arrays, counts=counts, seconds=secs)
+        print(f"[parallel] {name} unsharded: {secs:.2f} s, launches "
+              f"{ {k: counts[k] for k in ('k1', 'k2', 'k3')} }", flush=True)
+    ref_timed = par_timed(None, pipes)
+    gloo = par_spawn(2, "gloo", list(PAR_PATHS), work)
+    nccl = par_spawn(1, "nccl", ["am"], work)
+    out = dict(paths={}, launches={}, compare={})
+    # local chain counts (PT: rows a K1 call) and K3's regime: as unsharded
+    local = dict(am=PAR_CHAINS, de=PAR_CHAINS, pt=PAR_CHAINS, pso=PSO_SWARM,
+                 nuts=PAR_SMALL, nuts_logit=PAR_SMALL, mala=PAR_SMALL)
+    for backend, ranks in (("gloo", gloo), ("nccl", nccl)):
+        world = len(ranks)
+        for name in ranks[0]["paths"]:
+            label = f"{name} {backend} x{world}"
+            r0 = ranks[0]["paths"][name]
+            if any(r["paths"][name]["digest"] != r0["digest"] for r in ranks):
+                fail(f"phase 22 {label}: the ranks' global results differ")
+            tol = None if backend == "nccl" else PAR_PATHS[name][2]
+            cmp = out["compare"][label] = par_compare(
+                label, r0["arrays"], ref[name]["arrays"], tol)
+            want_k3 = None
+            rc = ref[name]["counts"]["k3_regime_calls"]
+            if ref[name]["counts"]["k3"]:
+                want_k3 = max(rc, key=rc.get)
+            par_expect_regimes(f"{name} unsharded", ref[name]["counts"],
+                               local[name], want_k3)
+            for rank, r in enumerate(ranks):
+                counts = r["paths"][name]["counts"]
+                B = local[name] // world
+                par_expect_regimes(f"{label} rank {rank}", counts, B, want_k3)
+                for k in ("k1", "k2", "k3"):
+                    if counts[k] != ref[name]["counts"][k]:
+                        fail(f"phase 22 {label} rank {rank}: {k.upper()} "
+                             f"{counts[k]} launches, the unsharded run "
+                             f"{ref[name]['counts'][k]}")
+                out["launches"][f"{label} rank {rank} B={B}"] = counts
+            print(f"[parallel] {label}: {r0['seconds']:.2f} s (unsharded "
+                  f"{ref[name]['seconds']:.2f}); max rel err "
+                  f"{ {f: f'{c['max_rel_err']:.2e}' for f, c in cmp.items()} }"
+                  f"; values differing in any bit "
+                  f"{ {f: c['values_differing'] for f, c in cmp.items()} }",
+                  flush=True)
+    for name in PAR_PATHS:
+        out["launches"][f"{name} unsharded B={local[name]}"] = \
+            ref[name]["counts"]
+    # before the first covariance update (step 10) no sum crosses ranks:
+    # the 2-rank AM samples of step 10 should equal the unsharded ones
+    first = out["compare"]["am gloo x2"]
+    g0 = gloo[0]["paths"]["am"]["arrays"]["samples"][0]
+    w0 = ref["am"]["arrays"]["samples"][0]
+    out["am_gloo_step10_bits_equal"] = bool(g0.tobytes() == w0.tobytes())
+    print(f"[parallel] AM 2 gloo ranks: step-10 samples (before any sum "
+          f"across ranks reaches a proposal) equal to the bit: "
+          f"{out['am_gloo_step10_bits_equal']}; of all samples "
+          f"{first['samples']['values_differing']} values differ in a bit",
+          flush=True)
+    timed = {}
+    steps = PAR_CHAINS * PAR_TIMED_STEPS
+    for label, runs in (("unsharded", [ref_timed]),
+                        ("gloo x2", [r["timed"] for r in gloo]),
+                        ("nccl x1", [r["timed"] for r in nccl])):
+        wall = max(t["wall"] for t in runs)
+        idle, busy_ms, window_ms = idle_share(runs)
+        rank_idle = [idle_share([t])[0] for t in runs]
+        alone = (steps / max(t["wall_alone"] for t in runs)
+                 if runs[0]["wall_alone"] is not None else None)
+        coll_ms = max(t["collective_seconds"] for t in runs) * 1e3
+        timed[label] = dict(
+            wall_seconds=wall, chain_steps_per_s=steps / wall,
+            collective_ms_per_step=coll_ms / PAR_TIMED_STEPS,
+            collective_calls=runs[0]["collective_calls"],
+            wall_collectives_timed=max(t["wall_collectives_timed"]
+                                       for t in runs),
+            block_idle_share=idle, block_busy_ms=busy_ms,
+            block_window_ms=window_ms, block_idle_share_by_rank=rank_idle,
+            unsharded_ranks_sharing_card_chain_steps_per_s=alone,
+            per_rank_k1=[t["counts"]["k1_batch_calls"] for t in runs])
+        print(f"[parallel] (g) AM-MH {PAR_CHAINS} chains f32 x "
+              f"{PAR_TIMED_STEPS} steps, {label}: "
+              f"{steps / wall:.4e} chain-steps/s ({wall:.2f} s), collectives "
+              f"{coll_ms / PAR_TIMED_STEPS:.3f} ms a step "
+              f"({runs[0]['collective_calls']} calls a rank), card idle "
+              f"{idle:.3f} of a 10-step block ({busy_ms:.1f} ms busy of "
+              f"{window_ms:.1f}, profiled; by rank "
+              f"{[round(x, 3) for x in rank_idle]})"
+              + ("" if alone is None else
+                 f"; the same ranks each running its {PAR_CHAINS // len(runs)}"
+                 f" chains unsharded at once, no collective: {alone:.4e} "
+                 f"chain-steps/s ({steps / alone:.2f} s)")
+              + f" on {card}", flush=True)
+    out["timed"] = timed
+    for label, runs in (("unsharded", [ref_timed]),
+                        ("gloo x2", [r["timed"] for r in gloo]),
+                        ("nccl x1", [r["timed"] for r in nccl])):
+        for rank, t in enumerate(runs):
+            B = PAR_CHAINS // len(runs)
+            par_expect_regimes(f"(g) {label} rank {rank}", t["counts"], B)
+            out["launches"][f"(g) AM-MH f32 {label} rank {rank} B={B}"] = \
+                t["counts"]
+    out["seconds"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[parallel] phase 22: {out['seconds']:.1f} s on {card}",
+          flush=True)
+    return out
+
+
 def main():
     k3_only = "--k3" in sys.argv[1:]
     main_only = "--main" in sys.argv[1:]
     fwd_only = "--fwd" in sys.argv[1:]
     campaign_only = "--campaign" in sys.argv[1:]
     sir_only = "--sir" in sys.argv[1:]
+    parallel_only = "--parallel" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -2056,6 +2635,17 @@ def main():
         print("chip_smoke --sir: the adaptive integrators, the SIR mains, the "
               "SIR calibration demo and PSO's three variants checked on the "
               "card; run without arguments for the whole check", flush=True)
+        return 0
+
+    if parallel_only:
+        results["parallel"] = parallel_phase(card)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_parallel.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --parallel: every sharded runner held on the card "
+              "against its unsharded run, and AM-MH timed sharded; run "
+              "without arguments for the whole check", flush=True)
         return 0
 
     # 2b. the forward kernels in both regimes
@@ -2197,7 +2787,14 @@ def main():
     camp_paths.update({f"pso {name} B={PSO_SWARM} (run_pso)": r["launches"]
                        for name, r in sir_run["pso"]["runs"].items()})
 
-    # 22. the kernels line, the card, the device line: each kernel's top-level
+    # 22. the sharded runners, 2 gloo ranks and 1 nccl rank
+    par = results["parallel"] = parallel_phase(card)
+    par_paths = {f"parallel {label}": c for label, c in par["launches"].items()}
+    camp_paths.update({k: {f: c[f] for f in ("k1", "k1_regime_calls")}
+                       for k, c in par_paths.items() if c["k1"]})
+    grad_paths = [(k, c) for k, c in par_paths.items() if c["k2"]]
+
+    # 23. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
@@ -2281,10 +2878,10 @@ def main():
                                          "K2_wide_ms")}
                       for r in fwd["crossover"]],
         "paths": {name: {k: c[k] for k in ("k2", "k2_regime_calls")}
-                  for name, c in (("nuts B=64", nuts_launches),
+                  for name, c in [("nuts B=64", nuts_launches),
                                   ("nuts (sepaihrd_main) B=64", main_nuts),
                                   ("mala B=64", mala),
-                                  ("mala B=1024", mala_wide))},
+                                  ("mala B=1024", mala_wide)] + grad_paths},
         "shape": "B=64 float32 dopri5@4 CLAMP",
         "configs": [main64["k2_check"]] + k2_cases}, {
         "name": "sepaihrd_adjoint", "route": "cuda",
@@ -2304,10 +2901,10 @@ def main():
         "shape": "B=64 float32 dopri5@4 CLAMP",
         "paths": {name: {k: c[k] for k in ("k3", "k3_kernels",
                                            "k3_regime_calls")}
-                  for name, c in (("nuts B=64", nuts_launches),
+                  for name, c in [("nuts B=64", nuts_launches),
                                   ("nuts (sepaihrd_main) B=64", main_nuts),
                                   ("mala B=64", mala),
-                                  ("mala B=1024", mala_wide))},
+                                  ("mala B=1024", mala_wide)] + grad_paths},
         "by_regime": {f"B={t['B']} {t['dtype']}": t["k3_forced"]
                       for t in timings},
         "configs": [main64["k3_check"]] + k3_cases}]
@@ -2316,7 +2913,8 @@ def main():
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=2, default=str)
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # compact: every path of every kernel is listed on this one line
+    print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,6 +16,12 @@ at segment ``s`` draws exactly what the uninterrupted one drew there, as the
 JAX package's ``fold_in(key, s)`` does. :class:`GeneratorDraws` reads one
 generator in call order. The tests hand the runners a third source that
 makes the JAX package's own draws from its keys.
+
+:class:`ShardDraws` hands one rank of a sharded run its rows of any source
+made at the GLOBAL chain count (the counterpart of
+``mmidv1_tpu/calibration/mh.py:160-174``): draws made at the local count
+would differ from the global table's rows, so a chain would see another
+stream on 1 rank than on W.
 """
 
 from __future__ import annotations
@@ -97,3 +103,63 @@ class GeneratorDraws(_Draws):
 
     def _gen(self, purpose, i=0):
         return self.generator
+
+
+class ShardDraws:
+    """Rows ``[offset, offset + n_local)`` of a draw source made for
+    ``n_total`` chains a rung (``rungs`` rungs, rung-major, as parallel
+    tempering lays its ``(K, N)`` rows out): ``init``, ``step``,
+    ``partners`` and ``swap`` of :class:`_Draws`, and ``jitter``,
+    ``eps_momentum`` and ``iteration`` of NUTS's ``SeededDraws``. DE-MC's
+    partner draws ``j, k`` stay global row indices."""
+
+    def __init__(self, source, n_total: int, offset: int, n_local: int,
+                 rungs: int = 1):
+        self.source, self.n_total = source, n_total
+        self.offset, self.n_local, self.rungs = offset, n_local, rungs
+
+    def _rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's chains of ``t``, whose ``dim`` holds ``rungs *
+        n_total`` rows."""
+        shape = t.shape
+        t = t.reshape(shape[:dim] + (self.rungs, self.n_total) + shape[dim + 1:])
+        t = t.narrow(dim + 1, self.offset, self.n_local)
+        return t.reshape(shape[:dim] + (self.rungs * self.n_local,)
+                         + shape[dim + 1:])
+
+    def init(self) -> torch.Tensor:
+        return self._rows(self.source.init())
+
+    def step(self, i: int):
+        return tuple(self._rows(t) for t in self.source.step(i))
+
+    def partners(self, i: int):
+        return tuple(self._rows(t) for t in self.source.partners(i))
+
+    def swap(self, i: int, shape) -> torch.Tensor:
+        shape = tuple(shape)
+        u = self.source.swap(i, shape[:-1] + (self.n_total,))
+        return u.narrow(len(shape) - 1, self.offset, self.n_local)
+
+    def jitter(self) -> torch.Tensor:
+        return self._rows(self.source.jitter())
+
+    def eps_momentum(self) -> torch.Tensor:
+        return self._rows(self.source.eps_momentum())
+
+    def iteration(self, it: int):
+        d = self.source.iteration(it)
+        return d._replace(r0=self._rows(d.r0), u=self._rows(d.u),
+                          v=self._rows(d.v, 1),
+                          leaf_u=tuple(self._rows(t, 1) for t in d.leaf_u),
+                          accept_u=self._rows(d.accept_u, 1))
+
+
+def shard_draws(source, mesh, n_total: int, rungs: int = 1):
+    """``source`` itself on a mesh of one, else its :class:`ShardDraws`
+    for this rank of ``mesh`` (an :class:`~mmidv1_tpu_torch.parallel.mesh.
+    EnsembleMesh`)."""
+    if mesh.world_size == 1:
+        return source
+    return ShardDraws(source, n_total, mesh.offset(n_total),
+                      mesh.n_local(n_total), rungs)

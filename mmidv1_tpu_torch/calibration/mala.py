@@ -17,8 +17,12 @@ acceptance. Proposals outside the box evaluate to the -1e18 floor and are
 rejected; gradients are norm-clipped per chain at ``grad_clip_norm``.
 
 Random draws: :func:`mala_step` takes its Gaussian proposals ``z (B, d)``
-and accept uniforms ``u (B,)`` as tensors; :func:`run_mala` draws them from
-a ``torch.Generator``.
+and accept uniforms ``u (B,)`` as tensors; :func:`run_mala` asks a draw
+source (:mod:`.draws`) for them, by default one ``torch.Generator``.
+
+Sharding (``mesh``, as in :mod:`.mh`): the drift, the proposal densities and
+the accept/reject are chain-local; the preconditioner's moments, the
+progress means and the MAP are reduced over ranks.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .mh import _safe_cholesky, safe_logp
+from ..parallel.mesh import LOCAL
+from .draws import GeneratorDraws, shard_draws
+from .mh import _global_best, _safe_cholesky, safe_logp
 from .nuts import value_and_grad_of
 from .param_space import ParameterSpace
 
@@ -121,15 +127,18 @@ def _bounded_value_and_grad(space: ParameterSpace, vg_batch: Callable,
 def init_mala_state(space: ParameterSpace, theta0: torch.Tensor,
                     eval_batch: Callable, noise: Optional[torch.Tensor], *,
                     jitter: float = 1.0, initial_cov=None,
-                    cfg: MALAConfig = MALAConfig()) -> MALAState:
+                    cfg: MALAConfig = MALAConfig(),
+                    offset: int = 0) -> MALAState:
     """Jittered ensemble around a (d,) ``theta0`` (chain i at ``theta0 +
-    jitter * sigmas * noise[i]``, chain 0 exactly at theta0, reflected into
-    the box), or a (B, d) ``theta0`` used as is."""
+    jitter * sigmas * noise[i]``, global chain 0 exactly at theta0 --
+    ``offset`` is the global index of this rank's first chain -- reflected
+    into the box), or a (B, d) ``theta0`` used as is."""
     d = space.dim
     dtype, dev = theta0.dtype, theta0.device
     if theta0.dim() == 1:
         x0 = theta0[None, :] + jitter * space.sigmas.to(dtype) * noise
-        x0[0] = theta0
+        if offset == 0:
+            x0[0] = theta0
         x0 = space.reflect(x0)              # init inside support only
     else:
         x0 = theta0
@@ -204,13 +213,16 @@ def mala_step(state: MALAState, z: torch.Tensor, u: torch.Tensor,
         accept_count=state.accept_count + accept.to(torch.int32), step=step)
 
 
-def adapt_preconditioner(state: MALAState, cfg: MALAConfig) -> MALAState:
+def adapt_preconditioner(state: MALAState, cfg: MALAConfig,
+                         mesh=LOCAL) -> MALAState:
     """Ensemble-cross-section covariance as the Langevin preconditioner
-    (no 2.38^2/d: eps carries the global scale)."""
+    (no 2.38^2/d: eps carries the global scale), moments summed over
+    ranks."""
     B, d = state.x.shape
-    centered = state.x - torch.mean(state.x, dim=0)
+    B = B * mesh.world_size
+    centered = state.x - mesh.psum(torch.sum(state.x, dim=0)) / B
     # max(B-1, 1): a single-chain ensemble would give a 0/0 NaN covariance
-    cov = (centered.T @ centered) / max(B - 1, 1)
+    cov = mesh.psum(centered.T @ centered) / max(B - 1, 1)
     cov = cov + cfg.regularization_epsilon * torch.eye(
         d, dtype=cov.dtype, device=cov.device)
     chol, ok = _safe_cholesky(cov, cfg.regularization_epsilon, state.chol)
@@ -222,17 +234,22 @@ def adapt_preconditioner(state: MALAState, cfg: MALAConfig) -> MALAState:
 
 def run_mala(loglik_batch: Optional[Callable], space: ParameterSpace,
              theta0: torch.Tensor, cfg: MALAConfig, *,
-             generator: torch.Generator, n_chains: int = 8,
+             generator: Optional[torch.Generator] = None, n_chains: int = 8,
              initial_cov: Optional[torch.Tensor] = None,
              initial_state: Optional[MALAState] = None, jitter: float = 1.0,
              progress_fn: Optional[Callable] = None,
-             value_and_grad_batch: Optional[Callable] = None) -> MALAResult:
+             value_and_grad_batch: Optional[Callable] = None,
+             draws=None, mesh=LOCAL) -> MALAResult:
     """Run the ensemble MALA sampler. Gradients default to
     ``torch.autograd`` through ``loglik_batch``; pass
     ``value_and_grad_batch`` for a batch-native engine. Returns thinned
     samples ``(ceil(iterations/thinning), B, d)``, like :func:`mh.run_mh`.
     ``progress_fn(step, mean_accept, best_logp, mean_eps)`` is called every
-    ``report_interval`` blocks."""
+    ``report_interval`` blocks (on a mesh, on every rank or on none: the
+    numbers are reduced over ranks). The start's jitter is ``draws.init()``
+    and step ``i``'s draws ``draws.step(i)``, from ``generator`` unless a
+    draw source is given. On a ``mesh`` ``n_chains`` is the GLOBAL count,
+    as for :func:`mh.run_mh`; the result is global but ``final_state``."""
     if cfg.iterations <= 0:
         raise ValueError(f"iterations must be positive, got {cfg.iterations}")
     if value_and_grad_batch is None:
@@ -240,40 +257,45 @@ def run_mala(loglik_batch: Optional[Callable], space: ParameterSpace,
     eval_batch = _bounded_value_and_grad(space, value_and_grad_batch,
                                          cfg.grad_clip_norm)
     dtype, dev = theta0.dtype, theta0.device
-    d = space.dim
+    if initial_state is not None:
+        n_chains = initial_state.x.shape[0] * mesh.world_size
+    if draws is None:
+        if generator is None:
+            raise ValueError("run_mala needs a generator or a draw source")
+        draws = GeneratorDraws(generator, n_chains, space.dim, dtype, dev)
+    draws = shard_draws(draws, mesh, n_chains)
     if initial_state is not None:
         state = initial_state
     else:
-        noise = torch.randn((n_chains, d), generator=generator, dtype=dtype,
-                            device=dev)
-        state = init_mala_state(space, theta0, eval_batch, noise,
-                                jitter=jitter, initial_cov=initial_cov, cfg=cfg)
-    B = state.x.shape[0]
+        state = init_mala_state(space, theta0, eval_batch, draws.init(),
+                                jitter=jitter, initial_cov=initial_cov, cfg=cfg,
+                                offset=mesh.offset(n_chains))
     thin = max(1, cfg.thinning)
     n_blocks = -(-cfg.iterations // thin)
     adapt_every_blocks = max(1, cfg.adaptation_period // thin)
     report_every = max(1, cfg.report_interval)
     samples, logps = [], []
     for block in range(n_blocks):
-        for _ in range(thin):
-            z = torch.randn((B, d), generator=generator, dtype=dtype, device=dev)
-            u = torch.rand((B,), generator=generator, dtype=dtype, device=dev)
+        for t in range(thin):
+            z, u = draws.step(block * thin + t)
             state = mala_step(state, z, u, space, eval_batch, cfg)
         if state.step > cfg.burn_in and \
                 (state.step // thin) % adapt_every_blocks == 0:
-            state = adapt_preconditioner(state, cfg)
+            state = adapt_preconditioner(state, cfg, mesh)
         if progress_fn is not None and (block + 1) % report_every == 0:
             progress_fn(state.step,
-                        float(torch.mean(state.accept_count.to(dtype)
-                                         / max(state.step, 1))),
-                        float(torch.max(state.best_logp)),
-                        float(torch.mean(torch.exp(state.log_eps))))
+                        float(mesh.mean(state.accept_count.to(dtype)
+                                        / max(state.step, 1))),
+                        float(mesh.pmax(torch.max(state.best_logp))),
+                        float(mesh.mean(torch.exp(state.log_eps))))
         samples.append(state.x)
         logps.append(state.logp)
-    i = int(torch.argmax(state.best_logp))
+    best_x, best_logp = _global_best(state.best_logp, state.best_x, mesh)
     return MALAResult(
-        samples=torch.stack(samples), sample_logps=torch.stack(logps),
-        best_x=state.best_x[i], best_logp=state.best_logp[i],
-        acceptance_rate=state.accept_count.to(dtype) / max(state.step, 1),
-        final_cov=state.cov, final_eps=torch.exp(state.log_eps),
+        samples=mesh.all_gather(torch.stack(samples), dim=1),
+        sample_logps=mesh.all_gather(torch.stack(logps), dim=1),
+        best_x=best_x, best_logp=best_logp,
+        acceptance_rate=mesh.all_gather(state.accept_count.to(dtype)
+                                        / max(state.step, 1)),
+        final_cov=state.cov, final_eps=mesh.all_gather(torch.exp(state.log_eps)),
         final_state=state)

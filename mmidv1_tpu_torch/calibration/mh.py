@@ -21,7 +21,15 @@ Ensemble upgrades, as in the JAX package: the covariance is re-estimated
 from the ensemble cross-section every ``adaptation_period`` steps, the
 scale is adapted per chain, and ``proposal="de"`` swaps the Gaussian for
 differential-evolution moves updated red-black (see :class:`MHConfig`).
-The JAX package's sharding hooks belong to the multi-device slice.
+
+Sharding (``mesh``, an :class:`~mmidv1_tpu_torch.parallel.mesh.EnsembleMesh`;
+the JAX package's ``axis_name`` / ``n_total`` / ``offset`` hooks): each rank
+holds a contiguous block of the ensemble's chains, draws its rows of the
+global draw tables (:class:`.draws.ShardDraws`), and the cross-chain parts
+are collectives: DE's walker table (an all-gather), the covariance moments
+and the progress numbers (all-reduces), the global MAP (the first maximum
+across ranks). A sharded run gives the unsharded run's samples up to the
+order of those sums; on a mesh of one, the same bits.
 
 Random draws: :func:`mh_step` takes its Gaussian proposals ``z (B, d)``,
 accept uniforms ``u (B,)`` and, for DE, its partner draws as tensors; the
@@ -42,8 +50,9 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..parallel.mesh import LOCAL
 from ..utils.logging import get_logger
-from .draws import GeneratorDraws, SeededRunDraws
+from .draws import GeneratorDraws, SeededRunDraws, shard_draws
 from .param_space import ParameterSpace
 
 
@@ -112,6 +121,7 @@ class MHState(NamedTuple):
 
 
 class MHResult(NamedTuple):
+    """Sharded, every field is global but ``final_state``: this rank's."""
     samples: torch.Tensor             # (n_stored, B, d) thinned chain states
     sample_logps: torch.Tensor        # (n_stored, B)
     best_x: torch.Tensor              # (d,) global MAP
@@ -149,15 +159,17 @@ def init_mh_state(space: ParameterSpace, theta0: torch.Tensor,
                   loglik_batch: Callable, z: torch.Tensor, *,
                   jitter: float = 1.0,
                   initial_cov: Optional[torch.Tensor] = None,
-                  reg_eps: float = 1e-6) -> MHState:
+                  reg_eps: float = 1e-6, offset: int = 0) -> MHState:
     """Initialize the ensemble around ``theta0`` (d,): chain i starts at
-    ``theta0 + jitter * sigmas * z[i]``, reflected into bounds; chain 0 starts
-    exactly at theta0. A ``(B, d)`` ``theta0`` is taken as the start as is."""
+    ``theta0 + jitter * sigmas * z[i]``, reflected into bounds; global chain
+    0 starts exactly at theta0 (``offset``: the global index of this rank's
+    first chain). A ``(B, d)`` ``theta0`` is taken as the start as is."""
     d = space.dim
     dtype = theta0.dtype
     if theta0.dim() == 1:
         x0 = theta0[None, :] + jitter * space.sigmas.to(dtype) * z
-        x0[0] = theta0
+        if offset == 0:
+            x0[0] = theta0
     else:
         x0 = theta0
     x0 = space.reflect(x0)
@@ -180,11 +192,12 @@ def mh_step(state: MHState, z: torch.Tensor, u: torch.Tensor,
             space: ParameterSpace, loglik_batch: Callable,
             cfg: MHConfig, *, j: Optional[torch.Tensor] = None,
             k: Optional[torch.Tensor] = None,
-            g_u: Optional[torch.Tensor] = None) -> MHState:
-    """One Metropolis step for the whole ensemble, given its draws: Gaussian
-    proposals ``z (B, d)`` and accept uniforms ``u (B,)``; with
-    ``proposal="de"`` also the partner rows ``j, k`` (ints in ``[0, B/2)``,
-    indices into the frozen half) and the gamma uniforms ``g_u (B,)``."""
+            g_u: Optional[torch.Tensor] = None, mesh=LOCAL) -> MHState:
+    """One Metropolis step for the whole ensemble (this rank's chains of
+    it), given its draws: Gaussian proposals ``z (B, d)`` and accept
+    uniforms ``u (B,)``; with ``proposal="de"`` also the partner rows ``j,
+    k`` (ints in ``[0, B_total/2)``, indices into the frozen half of the
+    global ensemble) and the gamma uniforms ``g_u (B,)``."""
     B, d = state.x.shape
     dtype = state.x.dtype
     scale = torch.exp(state.log_scale)[:, None]
@@ -192,17 +205,21 @@ def mh_step(state: MHState, z: torch.Tensor, u: torch.Tensor,
     if cfg.proposal == "de":
         # red-black halves (see MHConfig): the half whose parity matches the
         # step moves, with partners 2 r + (1 - parity) from the frozen half;
-        # j == k is allowed (the move degenerates to the jitter)
-        if B % 2:
+        # j == k is allowed (the move degenerates to the jitter). Parity is
+        # that of the GLOBAL chain id, and the walkers come from every rank
+        n_total = B * mesh.world_size
+        if n_total % 2:
             raise ValueError(f"proposal='de' needs an even ensemble, "
-                             f"got n_chains={B}")
+                             f"got n_chains={n_total}")
         parity = state.step % 2
-        active = (torch.arange(B, device=state.x.device) % 2) == parity
+        ids = mesh.offset(n_total) + torch.arange(B, device=state.x.device)
+        active = (ids % 2) == parity
         jj = 2 * j.long() + (1 - parity)
         kk = 2 * k.long() + (1 - parity)
         gamma = torch.where(g_u < cfg.de_gamma1_prob, torch.ones_like(g_u),
                             torch.full_like(g_u, 2.38 / math.sqrt(2 * d)))
-        diff = state.x[jj] - state.x[kk]
+        x_all = mesh.all_gather(state.x)
+        diff = x_all[jj] - x_all[kk]
         jit_e = cfg.de_noise * space.sigmas.to(dtype) * z
         proposal = state.x + (scale * gamma[:, None]) * diff + jit_e
         proposal = torch.where(active[:, None], proposal, state.x)
@@ -242,17 +259,27 @@ def mh_step(state: MHState, z: torch.Tensor, u: torch.Tensor,
         accept_count=state.accept_count + accept.to(torch.int32), step=step)
 
 
-def adapt_covariance(state: MHState, cfg: MHConfig) -> MHState:
+def adapt_covariance(state: MHState, cfg: MHConfig, mesh=LOCAL) -> MHState:
     """Re-estimate the shared proposal covariance from the ensemble
     cross-section with the optimal (2.38^2/d) scaling (reference :168-199,
-    ensemble estimator)."""
-    B, d = state.x.shape
-    centered = state.x - torch.mean(state.x, dim=0)
-    cov = (centered.T @ centered) / (B - 1)
+    ensemble estimator); sharded, the moments are summed over ranks, so
+    every rank gets the GLOBAL covariance."""
+    B_local, d = state.x.shape
+    B = B_local * mesh.world_size
+    centered = state.x - mesh.psum(torch.sum(state.x, dim=0)) / B
+    cov = mesh.psum(centered.T @ centered) / (B - 1)
     cov = (2.38 ** 2 / d) * cov + cfg.regularization_epsilon * torch.eye(
         d, dtype=cov.dtype, device=cov.device)
     chol, _ok = _safe_cholesky(cov, cfg.regularization_epsilon, state.chol)
     return state._replace(cov=cov, chol=chol)
+
+
+def _global_best(best_logp: torch.Tensor, best_x: torch.Tensor, mesh):
+    """The MAP over every rank's chains (the first maximum)."""
+    n = best_logp.shape[0]
+    ids = mesh.offset(n * mesh.world_size) + torch.arange(
+        n, device=best_logp.device)
+    return mesh.first_max(best_logp, best_x, ids)
 
 
 def _proposal_steps(cfg: MHConfig, step: int) -> int:
@@ -263,7 +290,8 @@ def _proposal_steps(cfg: MHConfig, step: int) -> int:
 
 def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
                    loglik_batch: Callable, *,
-                   progress_fn: Optional[Callable] = None) -> Callable:
+                   progress_fn: Optional[Callable] = None,
+                   mesh=LOCAL) -> Callable:
     """The segment program ``run(state0, draws) -> MHResult`` for ``cfg``:
     ``ceil(iterations / thinning)`` blocks of ``thinning`` steps, the
     covariance re-estimated at block boundaries past burn-in (AM only), a
@@ -271,7 +299,12 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
     (:mod:`.draws`); step ``i`` of the run takes ``draws.step(i)`` (and
     ``draws.partners(i)`` for DE). ``progress_fn(step, accept_rate,
     best_logp, mean_scale)`` is called every ``report_interval`` blocks, the
-    only host reads of the run."""
+    only host reads of the run.
+
+    On a ``mesh`` the state is this rank's chains and ``draws`` gives its
+    rows; the progress numbers are reduced over ranks (a collective: pass
+    ``progress_fn`` on every rank or on none), and the result's samples,
+    acceptance and scales are gathered from every rank."""
     if cfg.iterations <= 0:
         raise ValueError(f"iterations must be positive, got {cfg.iterations}")
     thin = max(1, cfg.thinning)
@@ -295,21 +328,21 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
                 if de:
                     j, k, g_u = draws.partners(i)
                 state = mh_step(state, z, u, space, loglik_batch, cfg,
-                                j=j, k=k, g_u=g_u)
+                                j=j, k=k, g_u=g_u, mesh=mesh)
             if not de and state.step > cfg.burn_in and \
                     (state.step // thin) % adapt_every_blocks == 0:
-                state = adapt_covariance(state, cfg)
+                state = adapt_covariance(state, cfg, mesh)
             if progress_fn is not None and (block + 1) % report_every == 0:
                 ps = max(_proposal_steps(cfg, state.step), 1)
                 progress_fn(state.step,
-                            float(torch.mean(state.accept_count / ps)),
-                            float(torch.max(state.best_logp)),
-                            float(torch.mean(torch.exp(state.log_scale))))
+                            float(mesh.mean(state.accept_count / ps)),
+                            float(mesh.pmax(torch.max(state.best_logp))),
+                            float(mesh.mean(torch.exp(state.log_scale))))
             if cfg.store_samples:
                 samples.append(state.x)
                 logps.append(state.logp)
         B, d = state.x.shape
-        i = torch.argmax(state.best_logp)
+        best_x, best_logp = _global_best(state.best_logp, state.best_x, mesh)
         if samples:
             samples, logps = torch.stack(samples), torch.stack(logps)
         else:
@@ -317,10 +350,13 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
             logps = state.logp.new_zeros((0, B))
         ps = max(_proposal_steps(cfg, state.step), 1)
         return MHResult(
-            samples=samples, sample_logps=logps,
-            best_x=state.best_x[i], best_logp=state.best_logp[i],
-            acceptance_rate=state.accept_count.to(state.x.dtype) / ps,
-            final_cov=state.cov, final_scale=torch.exp(state.log_scale),
+            samples=mesh.all_gather(samples, dim=1),
+            sample_logps=mesh.all_gather(logps, dim=1),
+            best_x=best_x, best_logp=best_logp,
+            acceptance_rate=mesh.all_gather(
+                state.accept_count.to(state.x.dtype) / ps),
+            final_cov=state.cov,
+            final_scale=mesh.all_gather(torch.exp(state.log_scale)),
             final_state=state)
 
     return run
@@ -330,25 +366,35 @@ def run_mh(loglik_batch: Callable, space: ParameterSpace, theta0: torch.Tensor,
            cfg: MHConfig, *, generator: Optional[torch.Generator] = None,
            n_chains: int = 8, initial_cov: Optional[torch.Tensor] = None,
            initial_state: Optional[MHState] = None, jitter: float = 1.0,
-           progress_fn: Optional[Callable] = None, draws=None) -> MHResult:
+           progress_fn: Optional[Callable] = None, draws=None,
+           mesh=LOCAL) -> MHResult:
     """Run the full ensemble sampler; ``loglik_batch`` maps ``(B, d)`` thetas
     to ``(B,)``. Returns thinned samples of shape
     ``(ceil(iterations/thinning), B, d)``; ``initial_state`` resumes a run.
     Every draw comes from ``generator`` (on the device of ``theta0``), or
-    from the draw source ``draws``."""
-    run = make_mh_runner(space, cfg, loglik_batch, progress_fn=progress_fn)
+    from the draw source ``draws``, either made for the whole ensemble.
+
+    On a ``mesh`` (:func:`mmidv1_tpu_torch.parallel.run_mh_sharded`)
+    ``n_chains`` is the GLOBAL chain count, this rank runs its share, takes
+    its rows of every draw table, and ``initial_state`` is this rank's
+    ``final_state`` of an earlier run."""
+    run = make_mh_runner(space, cfg, loglik_batch, progress_fn=progress_fn,
+                         mesh=mesh)
     dtype, dev = theta0.dtype, theta0.device
+    if initial_state is not None:
+        n_chains = initial_state.x.shape[0] * mesh.world_size
     if draws is None:
         if generator is None:
             raise ValueError("run_mh needs a generator or a draw source")
-        B = n_chains if initial_state is None else initial_state.x.shape[0]
-        draws = GeneratorDraws(generator, B, space.dim, dtype, dev)
+        draws = GeneratorDraws(generator, n_chains, space.dim, dtype, dev)
+    draws = shard_draws(draws, mesh, n_chains)
     if initial_state is not None:
         state = initial_state
     else:
         state = init_mh_state(space, theta0, loglik_batch, draws.init(),
                               jitter=jitter, initial_cov=initial_cov,
-                              reg_eps=cfg.regularization_epsilon)
+                              reg_eps=cfg.regularization_epsilon,
+                              offset=mesh.offset(n_chains))
     return run(state, draws)
 
 

@@ -28,6 +28,12 @@ Random draws: every draw is a tensor handed in. One iteration's draws are a
 with the same seed continues bit for bit, as the JAX key table does. The
 JAX package's threefry stream cannot be reproduced in PyTorch, so tests hand
 both sides the draws JAX makes from its keys.
+
+Sharding (``chain_sharding``, an
+:class:`~mmidv1_tpu_torch.parallel.mesh.EnsembleMesh`): tree building, step
+sizes and acceptance are chain-local, so each rank runs its block of chains
+on its rows of the global draw tables (:class:`.draws.ShardDraws`); only the
+best-chain argmax reduces across ranks, and the result is gathered.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .draws import seeded_generator
+from ..parallel.mesh import LOCAL, EnsembleMesh
+from .draws import seeded_generator, shard_draws
 from .param_space import ParameterSpace
 
 DELTA_MAX = 1000.0
@@ -434,19 +441,28 @@ def run_nuts(loglik_batch: Optional[Callable], space: ParameterSpace,
     draws of iteration ``it`` depend only on the seed and ``it``); the
     samples returned cover only the iterations this call ran. ``draws``
     replaces the :class:`SeededDraws` source (an object with ``jitter()``,
-    ``eps_momentum()`` and ``iteration(it)``). ``chain_sharding`` belongs
-    to the multi-device slice of the port and raises."""
-    if chain_sharding is not None:
-        raise NotImplementedError("chain_sharding belongs to the multi-device "
-                                  "slice of the port")
+    ``eps_momentum()`` and ``iteration(it)``), made for all ``n_chains``.
+
+    ``chain_sharding`` (an :class:`~mmidv1_tpu_torch.parallel.mesh.
+    EnsembleMesh`) splits the ``n_chains`` (global) chains over its ranks:
+    a 2-D ``theta0`` and ``initial_state`` / ``on_segment``'s state are
+    then this rank's, the returned result is global."""
+    if chain_sharding is not None and \
+            not isinstance(chain_sharding, EnsembleMesh):
+        raise TypeError(f"chain_sharding must be an EnsembleMesh "
+                        f"(mmidv1_tpu_torch.parallel.ensemble_mesh), got "
+                        f"{type(chain_sharding).__name__}")
+    mesh = LOCAL if chain_sharding is None else chain_sharding
     dtype, dev = theta0.dtype, theta0.device
     d = space.dim
     if value_and_grad_batch is None:
         value_and_grad_batch = value_and_grad_of(loglik_batch)
     safe_vag = _safe(value_and_grad_batch)
-    B = n_chains
+    B = mesh.n_local(n_chains)
+    offset = mesh.offset(n_chains)
     if draws is None:
-        draws = SeededDraws(seed, B, d, cfg.max_tree_depth, dtype, dev)
+        draws = SeededDraws(seed, n_chains, d, cfg.max_tree_depth, dtype, dev)
+    draws = shard_draws(draws, mesh, n_chains)
 
     if initial_state is None:
         if theta0.dim() == 2:
@@ -454,11 +470,12 @@ def run_nuts(loglik_batch: Optional[Callable], space: ParameterSpace,
                 raise ValueError(
                     f"2-D theta0 warm start must have n_chains rows: got "
                     f"{theta0.shape[0]} rows for n_chains={n_chains}")
-            x0 = space.clamp(theta0)
+            x0 = space.clamp(theta0[offset:offset + B])
         else:
             x0 = theta0[None, :] + jitter * space.sigmas.to(dtype) * \
                 draws.jitter()
-            x0[0] = theta0
+            if offset == 0:
+                x0[0] = theta0
             x0 = space.clamp(x0)
         eps0 = find_reasonable_epsilon(safe_vag, space, x0, space.sigmas,
                                        draws.eps_momentum())
@@ -493,18 +510,22 @@ def run_nuts(loglik_batch: Optional[Callable], space: ParameterSpace,
         xs_all = [torch.zeros((0, B, d), dtype=dtype, device=dev)]
         lps_all = [torch.zeros((0, B), dtype=dtype, device=dev)]
         n_acc = 1
-    bc = int(torch.argmax(state.best_logp))
-    return NUTSResult(samples=torch.cat(xs_all), sample_logps=torch.cat(lps_all),
-                      best_x=state.best_x[bc], best_logp=state.best_logp[bc],
-                      step_sizes=state.eps, mean_accept=acc_sum / n_acc,
-                      mean_depth=dep_sum / n_acc)
+    ids = offset + torch.arange(B, device=dev)
+    best_x, best_logp = mesh.first_max(state.best_logp, state.best_x, ids)
+    return NUTSResult(samples=mesh.all_gather(torch.cat(xs_all), dim=1),
+                      sample_logps=mesh.all_gather(torch.cat(lps_all), dim=1),
+                      best_x=best_x, best_logp=best_logp,
+                      step_sizes=mesh.all_gather(state.eps),
+                      mean_accept=mesh.all_gather(acc_sum / n_acc),
+                      mean_depth=mesh.all_gather(dep_sum / n_acc))
 
 
 def run_nuts_whitened(loglik_batch: Optional[Callable], space: ParameterSpace,
                       theta0: torch.Tensor, cfg: NUTSConfig, *, seed: int = 0,
                       n_chains: int = 1, jitter: float = 0.1,
                       value_and_grad_batch: Optional[Callable] = None,
-                      segments: int = 1, draws=None) -> NUTSResult:
+                      segments: int = 1, draws=None,
+                      chain_sharding=None) -> NUTSResult:
     """:func:`run_nuts` in sigma-whitened coordinates ``z = theta / sigmas``
     (a diagonal mass matrix ``diag(1 / sigmas**2)``). Samples and best_x
     come back in theta units; step_sizes stay in whitened units."""
@@ -523,7 +544,8 @@ def run_nuts_whitened(loglik_batch: Optional[Callable], space: ParameterSpace,
 
     res = run_nuts(None, w_space, theta0 / s, cfg, seed=seed,
                    n_chains=n_chains, jitter=jitter, value_and_grad_batch=vag_z,
-                   segments=segments, draws=draws)
+                   segments=segments, draws=draws,
+                   chain_sharding=chain_sharding)
     return res._replace(samples=res.samples * s, best_x=res.best_x * s)
 
 
@@ -534,7 +556,7 @@ def run_nuts_dense(loglik_batch: Optional[Callable], space: ParameterSpace,
                    segments: int = 1, init: Optional[torch.Tensor] = None,
                    initial_state: Optional[NUTSState] = None,
                    on_segment: Optional[Callable] = None,
-                   draws=None) -> NUTSResult:
+                   draws=None, chain_sharding=None) -> NUTSResult:
     """:func:`run_nuts` with a dense mass matrix: ``theta = mu + scale @ z``.
 
     ``z`` is sampled unbounded; the objective's REFLECT mode folds
@@ -565,7 +587,8 @@ def run_nuts_dense(loglik_batch: Optional[Callable], space: ParameterSpace,
     res = run_nuts(None, z_space, z0, cfg, seed=seed, n_chains=n_chains,
                    jitter=jitter, value_and_grad_batch=vag_z,
                    segments=segments, initial_state=initial_state,
-                   on_segment=on_seg_z, draws=draws)
+                   on_segment=on_seg_z, draws=draws,
+                   chain_sharding=chain_sharding)
     return res._replace(samples=to_theta(res.samples),
                         best_x=space.reflect(mu + res.best_x @ S.T))
 
@@ -592,7 +615,7 @@ def run_nuts_logit(loglik_batch: Optional[Callable], space: ParameterSpace,
                    initial_state: Optional[NUTSState] = None,
                    on_segment: Optional[Callable] = None,
                    power: Optional[torch.Tensor] = None,
-                   draws=None) -> NUTSResult:
+                   draws=None, chain_sharding=None) -> NUTSResult:
     """:func:`run_nuts` in unconstrained power-logit coordinates with a dense
     mass (the sampler of the committed posterior, ``nuts_logit-dense``).
 
@@ -656,7 +679,8 @@ def run_nuts_logit(loglik_batch: Optional[Callable], space: ParameterSpace,
     res = run_nuts(None, z_space, z0, cfg, seed=seed, n_chains=n_chains,
                    jitter=jitter, value_and_grad_batch=vag_z,
                    segments=segments, initial_state=initial_state,
-                   on_segment=on_seg_z, draws=draws)
+                   on_segment=on_seg_z, draws=draws,
+                   chain_sharding=chain_sharding)
     th_samples = to_theta(res.samples)
     th_best = to_theta(res.best_x[None, :])
     return res._replace(samples=th_samples,

@@ -29,6 +29,13 @@ freeze and the covariance schedule cost no host read. Draws come from a draw
 source (:mod:`.draws`) as for :mod:`.mh`. The cold rung's thinned history is
 the returned sample; the MAP is taken over ALL rungs (hot-rung
 log-densities are untempered, hence comparable).
+
+Sharding (``mesh``, as in :mod:`.mh`) splits the CHAIN axis (dim 1) of the
+``(K, N, ...)`` fields; the rung axis stays whole on every rank. Swaps
+exchange rung rows chain by chain, so they stay local; the swap rates' mean
+over chains, the swap counters, the per-rung covariance and the MAP are
+reduced over ranks, so the ladder and the ``(K, d, d)`` state are the same
+on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .draws import GeneratorDraws
+from ..parallel.mesh import LOCAL
+from .draws import GeneratorDraws, shard_draws
 from .mh import safe_logp
 from .param_space import ParameterSpace
 
@@ -136,17 +144,19 @@ def init_pt_state(space: ParameterSpace, theta0: torch.Tensor,
                   initial_cov: Optional[torch.Tensor] = None,
                   reg_eps: float = 1e-6,
                   betas: Optional[torch.Tensor] = None,
-                  beta_min: float = 0.05) -> PTState:
+                  beta_min: float = 0.05, offset: int = 0) -> PTState:
     """Initialize all rungs around ``theta0`` (d,), jittered by ``jitter *
-    sigmas * z`` (``z`` is ``(K*N, d)``; rung-0 chain 0 starts exactly at
-    ``theta0``); every rung starts from the same conditioned covariance.
+    sigmas * z`` (``z`` is ``(K*N, d)``; rung-0 global chain 0 starts
+    exactly at ``theta0``; ``offset``: the global index of this rank's first
+    chain); every rung starts from the same conditioned covariance.
     ``betas`` seeds the ladder (default: the geometric ``beta_min``
     ladder); with ladder adaptation on it is only the starting point."""
     d = space.dim
     dtype, dev = theta0.dtype, theta0.device
     K, N = n_rungs, n_chains
     x0 = theta0[None, :] + jitter * space.sigmas.to(dtype) * z
-    x0[0] = theta0
+    if offset == 0:
+        x0[0] = theta0
     x0 = space.reflect(x0).reshape(K, N, d)
     logp0 = safe_logp(loglik_batch(x0.reshape(K * N, d))).reshape(K, N)
 
@@ -221,13 +231,15 @@ def pt_mh_step(state: PTState, z: torch.Tensor, u: torch.Tensor,
 
 
 def pt_swap_step(state: PTState, u: torch.Tensor, betas: torch.Tensor,
-                 parity: int, ema: float = 0.1) -> PTState:
+                 parity: int, ema: float = 0.1, mesh=LOCAL) -> PTState:
     """One even-odd swap sweep, given its uniforms ``u (K-1, N)``: adjacent
     pairs (k, k+1) with k = parity (mod 2) exchange (x, logp) chain-column
     wise with the replica-exchange acceptance probability. Also keeps the
     per-pair mean swap-probability EMA the ladder adaptation reads (the
-    analytic ``min(1, exp(log_alpha))`` averaged over chains)."""
+    analytic ``min(1, exp(log_alpha))`` averaged over every rank's
+    chains)."""
     K, N, _d = state.x.shape
+    n_total = N * mesh.world_size
     if K == 1:
         return state
     dev = state.x.device
@@ -238,7 +250,8 @@ def pt_swap_step(state: PTState, u: torch.Tensor, betas: torch.Tensor,
     accept = ((log_alpha >= 0) | (torch.log(torch.clamp_min(u, 1e-12))
                                   < log_alpha)) & pair_on[:, None]
 
-    p_pair = torch.mean(torch.exp(torch.clamp_max(log_alpha, 0.0)), dim=1)
+    p_pair = mesh.psum(torch.sum(torch.exp(torch.clamp_max(log_alpha, 0.0)),
+                                 dim=1)) / n_total
     swap_prob = torch.where(pair_on,
                             (1.0 - ema) * state.swap_prob + ema * p_pair,
                             state.swap_prob)
@@ -257,8 +270,9 @@ def pt_swap_step(state: PTState, u: torch.Tensor, betas: torch.Tensor,
 
     return state._replace(
         x=exchange(state.x), logp=exchange(state.logp),
-        swap_accept=state.swap_accept + accept.sum(dim=1).to(torch.int32),
-        swap_tries=state.swap_tries + (pair_on * N).to(torch.int32),
+        swap_accept=state.swap_accept
+        + mesh.psum(accept.sum(dim=1)).to(torch.int32),
+        swap_tries=state.swap_tries + (pair_on * n_total).to(torch.int32),
         swap_prob=swap_prob)
 
 
@@ -281,14 +295,16 @@ def pt_adapt_ladder(state: PTState, cfg: PTConfig) -> PTState:
     return state._replace(ladder_s=s, betas=_ladder_from_spacings(s, t_max))
 
 
-def pt_adapt_covariance(state: PTState, cfg: PTConfig) -> PTState:
+def pt_adapt_covariance(state: PTState, cfg: PTConfig,
+                        mesh=LOCAL) -> PTState:
     """Per-rung ensemble covariance re-estimation (the per-rung
-    :func:`.mh.adapt_covariance`); a rung whose factorization fails keeps
-    its previous factor."""
+    :func:`.mh.adapt_covariance`, moments summed over ranks); a rung whose
+    factorization fails keeps its previous factor."""
     K, N, d = state.x.shape
+    n_total = N * mesh.world_size
     dtype, dev = state.x.dtype, state.x.device
-    c = state.x - torch.mean(state.x, dim=1, keepdim=True)
-    cov = torch.einsum("knd,kne->kde", c, c) / max(N - 1, 1)
+    c = state.x - mesh.psum(torch.sum(state.x, dim=1, keepdim=True)) / n_total
+    cov = mesh.psum(torch.einsum("knd,kne->kde", c, c)) / max(n_total - 1, 1)
     eye = torch.eye(d, dtype=dtype, device=dev)
     cov = (2.38 ** 2 / d) * cov + cfg.regularization_epsilon * eye
     chol, info = torch.linalg.cholesky_ex(cov + cfg.regularization_epsilon
@@ -300,10 +316,12 @@ def pt_adapt_covariance(state: PTState, cfg: PTConfig) -> PTState:
 
 
 def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
-                   loglik_batch: Callable) -> Callable:
+                   loglik_batch: Callable, mesh=LOCAL) -> Callable:
     """The segment program ``run(state0, draws) -> PTResult`` (the PT
     :func:`.mh.make_mh_runner`): step ``i`` takes ``draws.step(i)`` over
-    ``K * N`` chains and, on a swap sweep, ``draws.swap(i, (K-1, N))``."""
+    ``K * N`` chains and, on a swap sweep, ``draws.swap(i, (K-1, N))``. On
+    a ``mesh`` the state holds this rank's chains of every rung and the
+    result's samples and acceptance are gathered from every rank."""
     if cfg.iterations <= 0:
         raise ValueError(f"iterations must be positive, got {cfg.iterations}")
     thin = max(1, cfg.thinning)
@@ -326,7 +344,7 @@ def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
                     state = pt_swap_step(state, draws.swap(i, (K - 1, N)),
                                          state.betas,
                                          state.step // swap_every,
-                                         ema=cfg.ladder_ema)
+                                         ema=cfg.ladder_ema, mesh=mesh)
                     if cfg.adapt_ladder and state.step <= cfg.burn_in:
                         state = pt_adapt_ladder(state, cfg)
             # Unlike mh.py, covariance adaptation runs from step 0: PT
@@ -335,16 +353,24 @@ def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
             # mixing and feed the ladder swap rates from a mis-scaled
             # sampler. Burn-in still gates the ladder freeze.
             if (state.step // thin) % adapt_every_blocks == 0:
-                state = pt_adapt_covariance(state, cfg)
+                state = pt_adapt_covariance(state, cfg, mesh)
             samples.append(state.x[0])
             logps.append(state.logp[0])
-        flat_lp = state.best_logp.reshape(-1)
-        i = torch.argmax(flat_lp)
+        # the first maximum in the unsharded (K, n_total) rung-major order
+        n_total = N * mesh.world_size
+        ids = (torch.arange(K, device=state.x.device)[:, None] * n_total
+               + mesh.offset(n_total)
+               + torch.arange(N, device=state.x.device)[None, :])
+        best_x, best_logp = mesh.first_max(state.best_logp.reshape(-1),
+                                           state.best_x.reshape(K * N, d),
+                                           ids.reshape(-1))
         dtype = state.x.dtype
         return PTResult(
-            samples=torch.stack(samples), sample_logps=torch.stack(logps),
-            best_x=state.best_x.reshape(K * N, d)[i], best_logp=flat_lp[i],
-            acceptance_rate=state.accept_count.to(dtype) / max(state.step, 1),
+            samples=mesh.all_gather(torch.stack(samples), dim=1),
+            sample_logps=mesh.all_gather(torch.stack(logps), dim=1),
+            best_x=best_x, best_logp=best_logp,
+            acceptance_rate=mesh.all_gather(
+                state.accept_count.to(dtype) / max(state.step, 1), dim=1),
             swap_rate=state.swap_accept.to(dtype)
             / torch.clamp_min(state.swap_tries, 1).to(dtype),
             final_state=state)
@@ -357,27 +383,33 @@ def run_pt(loglik_batch: Callable, space: ParameterSpace,
            generator: Optional[torch.Generator] = None, n_chains: int = 8,
            initial_cov: Optional[torch.Tensor] = None,
            initial_state: Optional[PTState] = None, jitter: float = 1.0,
-           draws=None) -> PTResult:
+           draws=None, mesh=LOCAL) -> PTResult:
     """Run the replica-exchange sampler. ``loglik_batch`` sees batches of
     ``n_rungs * n_chains`` thetas. Returns the COLD rung's thinned samples;
     ``swap_rate`` should sit in ~[0.2, 0.6] per pair — a near-zero entry
     means the ladder has a gap (raise ``n_rungs`` or ``beta_min``). Every
     draw comes from ``generator`` (on the device of ``theta0``), or from
-    the draw source ``draws``."""
-    run = make_pt_runner(space, cfg, loglik_batch)
+    the draw source ``draws``, made for every rung's whole ensemble. On a
+    ``mesh`` ``n_chains`` is the GLOBAL count a rung and this rank runs its
+    share (:func:`mmidv1_tpu_torch.parallel.run_pt_gspmd`)."""
+    run = make_pt_runner(space, cfg, loglik_batch, mesh)
     dtype, dev = theta0.dtype, theta0.device
+    K = cfg.n_rungs
+    if initial_state is not None:
+        K, N = initial_state.x.shape[:2]
+        n_chains = N * mesh.world_size
     if draws is None:
         if generator is None:
             raise ValueError("run_pt needs a generator or a draw source")
-        K, N = ((cfg.n_rungs, n_chains) if initial_state is None
-                else initial_state.x.shape[:2])
-        draws = GeneratorDraws(generator, K * N, space.dim, dtype, dev)
+        draws = GeneratorDraws(generator, K * n_chains, space.dim, dtype, dev)
+    draws = shard_draws(draws, mesh, n_chains, rungs=K)
     if initial_state is not None:
         state = initial_state
     else:
         state = init_pt_state(space, theta0, loglik_batch, draws.init(),
-                              n_rungs=cfg.n_rungs, n_chains=n_chains,
+                              n_rungs=K, n_chains=mesh.n_local(n_chains),
                               jitter=jitter, initial_cov=initial_cov,
                               reg_eps=cfg.regularization_epsilon,
-                              betas=cfg.ladder(dtype, dev))
+                              betas=cfg.ladder(dtype, dev),
+                              offset=mesh.offset(n_chains))
     return run(state, draws)

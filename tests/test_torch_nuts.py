@@ -222,7 +222,15 @@ def test_resume_is_bit_identical(target):
                           value_and_grad_batch=target["vag_t"],
                           initial_state=states[1])
     assert done.samples.shape == (0, 6, tspace.dim)
-    with pytest.raises(NotImplementedError):
+    # chain sharding over a mesh of one is the unsharded run, bit for bit;
+    # anything but a mesh is refused
+    from mmidv1_tpu_torch.parallel.mesh import LOCAL
+    one = tnuts.run_nuts(None, tspace, theta0, cfg, seed=11, n_chains=6,
+                         value_and_grad_batch=target["vag_t"],
+                         chain_sharding=LOCAL)
+    assert torch.equal(one.samples, full.samples)
+    assert torch.equal(one.step_sizes, full.step_sizes)
+    with pytest.raises(TypeError, match="EnsembleMesh"):
         tnuts.run_nuts(None, tspace, theta0, cfg, n_chains=6,
                        value_and_grad_batch=target["vag_t"],
                        chain_sharding=object())
