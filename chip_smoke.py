@@ -8,6 +8,7 @@
     python3 chip_smoke.py --campaign  # build, then phases 15-17 only (no ok line)
     python3 chip_smoke.py --sir    # build, then phases 18-21 only (no ok line)
     python3 chip_smoke.py --parallel  # build, then phase 22 only (no ok line)
+    python3 chip_smoke.py --nuts   # build, then phases 23-25 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -145,8 +146,9 @@ Phases (any failure exits non-zero before the final line):
  20. ``sir_age_structured_calibration_demo`` at 32 chains, depth cut to 2
      hill iterations and 10 MH steps and the window to the first
      ``SIR_DEMO_DAYS`` of its 306 days (on an H100 the phase took 68.4 s
-     at 306 days on one host and 68.8 s at 200 days on a slower one: one
-     objective call is 2.5-4.6 s of eager launches, set by the host); best
+     at 306 days on one host and 68.8 s at 200 days on a slower one, 32.3
+     s at 120 days; cut to 60 with phases 23-25: one objective call is
+     2.5-4.6 s of eager launches, set by the host); best
      >= initial objective, both CSVs in the JAX formats, every sample
      finite; the seconds of one objective call at the full 306 days, at 32
      and at 1024 chains;
@@ -181,7 +183,54 @@ Phases (any failure exits non-zero before the final line):
      around each; a collective's time includes waiting for the other
      rank), and the card's idle share over one 10-step block
      (torch.profiler, the ranks' kernels merged);
- 23. print the kernels line and, last, the device line.
+ 23. the production NUTS recipe (``cli.nuts_campaign``) and the MAP polish,
+     each through its ``main`` into a temporary directory: K1 (float64, B =
+     257, the MAP re-selection's shape) and K2 / K3 (float32 at 64 chains,
+     float64 at 71, the polish's Hessian rows) held against their plain
+     versions as in phases 3, 6 and 7 (K2 / K3 only under ``--nuts``: the
+     whole script has held their regimes and dtypes in phases 2b and 6-8);
+     ``map_polish --rounds 0`` from the committed theta_map on the card and
+     on the host: ``ll_map`` equals
+     ``results/spain2020/laplace_mass.npz``'s to rtol 1e-10, the free mask
+     equals the host's, ``std`` / ``cov_free`` card vs host within
+     ``POLISH_STD_RTOL`` / ``POLISH_COV_RTOL`` (the mask against the
+     committed one is printed: that file's gradient came from another
+     engine); ``--mass logit-dense`` with the committed logit-seed trace as
+     ``--trace`` and ``--warm``, 64 chains, depth 10, 3 iterations:
+     grad-evals/s including the host, then one more iteration resumed from
+     its checkpoint under torch.profiler: the card's idle share; depth 4, 8
+     iterations in 4 segments, against the same killed after 2 segments (a
+     third partial file written without its state) and resumed: every
+     partial file, the state, samples.npz and the trace to the bit;
+     ``--stages 2`` with ``laplace-dense`` at depth 3; ``--serovalid`` on
+     the serovalid Laplace trace, depth 2, 2 iterations, each of its
+     value_and_grad calls with K2 + K3 and the sero term timed apart, and
+     the composed float64 value_and_grad at 4 chains card vs host (rtol
+     1e-9, floored). Every campaign is counted from 0: every K2 call at 64
+     chains in the regime the rule picks, one K3 call each, one K1 call for
+     the re-selection. The host's runs (the polish, phase 24's curvature,
+     the composed value_and_grad) go in a process of their own beside the
+     card's (``--host-refs``);
+ 24. ``curvature_probe --points 1`` on the card and on the host (the exact
+     float64 Hessian of the logit posterior, reverse over reverse through
+     the eager solve): eig_max and eps_stable to rtol 1e-8, and the seconds
+     of each Hessian; ``make_capped_mass --points 1`` on the host beside
+     the card (the same Hessian code: 66.5 s more on an H100);
+     ``nuts_campaign --mass logit-file`` on the capped mass at depth 3;
+     ``energy_error_probe`` at its defaults (64 chains, 128 leapfrogs, 5 step
+     sizes: 650 K2 / K3 calls);
+ 25. ``serovalid_pipeline --maxiter 2 --skip-laplace`` (its Laplace is the
+     exact Hessian of phase 24, 86 s more on an H100): its
+     ``reference_bounds_map`` row
+     1432889.790896839 (rtol 1e-10) and sero 0.010137770903508477 (rtol
+     1e-9), the committed serovalid MAP through K1 1434295.2737713018 (rtol
+     1e-10); ``serovalid_posterior_summary`` on a copy of
+     ``results/spain2020_serovalid``: the committed sero quantiles within
+     ``SV_SERO_RTOL``, the inside-CI fraction within 1/512, the logl
+     quantiles exact; ``refresh_artifact`` of phase 23's depth-10 campaign
+     into a copy of ``results/spain2020``: the committed MAP kept, and the
+     serovalid campaign refused;
+ 26. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -189,6 +238,7 @@ Everything measured also goes to ``chiprun_out/chip_smoke.json``.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -203,7 +253,7 @@ PEAK_BYTES = 3.35e12                                 # H100 SXM HBM3
 # version does not), so a wrong coefficient on one stage cannot pass.
 FWD_TOL = {"float64": 1e-10, "float32": 5e-6}
 # phase 12: the depth of the hillmcmc run (MH 100 000 x MAIN_SCALE steps)
-MAIN_SCALE = 0.002
+MAIN_SCALE = 0.001       # 0.002 until phases 23-25 needed the time
 
 
 def fail(msg):
@@ -1550,7 +1600,7 @@ SIR_CONFIG = os.path.join(HERE, "data", "configuration",
 ADAPTIVE_RTOL = {"float64": 1e-6, "float32": 1e-5}
 SIR_MAIN_RTOL = 1e-9     # the --x64 mains' CSVs, card vs host
 PSO_SWARM = 512
-SIR_DEMO_DAYS = 120      # phase 20's window (see the docstring)
+SIR_DEMO_DAYS = 60       # phase 20's window (see the docstring)
 
 
 def rel_err(a, b):
@@ -2538,13 +2588,674 @@ def parallel_phase(card):
     return out
 
 
+# ------------------------------------------------------------- phases 23-25
+# The production NUTS recipe and its tools (mmidv1_tpu_torch/cli:
+# nuts_campaign, map_polish, curvature_probe, make_capped_mass,
+# energy_error_probe, serovalid_pipeline, serovalid_posterior_summary,
+# refresh_artifact), each driven through its main() on the card into a
+# temporary directory; nothing under results/ is written.
+LOGITSEED = os.path.join(HERE, "results", "spain2020_nuts_logitseed",
+                         "samples.npz")
+SV_DIR = os.path.join(HERE, "results", "spain2020_serovalid")
+POLISH_LL = 1432889.7909088247     # results/spain2020/laplace_mass.npz ll_map
+# 5x the host's readings of the port's Hessian products against the same
+# function driven by the JAX package's float64 gradient (3.7e-9 / 5.7e-9)
+POLISH_STD_RTOL, POLISH_COV_RTOL = 2e-8, 3e-8
+SV_REF_ROW = (1432889.790896839, 0.010137770903508477)  # serovalid_metadata
+SV_MAP_LL = 1434295.2737713018     # results/spain2020_serovalid/run_metadata
+SV_SERO_Q = {"q2.5": 0.03260142216458917, "q50": 0.03462892770767212,
+             "q97.5": 0.03701111059635877}
+SV_INSIDE = 0.0078125
+# 5x the host's float32 replay against the committed quantiles (1.24e-6)
+SV_SERO_RTOL = 6e-6
+NUTS_DEPTH10 = ["--mass", "logit-dense", "--trace", LOGITSEED, "--warm",
+                LOGITSEED, "--chains", "64", "--depth", "10", "--warmup", "1",
+                "--iterations", "3", "--segments", "3"]
+
+
+def drive_main(module, argv, label, expect_rc=0):
+    """``module.main(argv)`` on the card, every kernel counted from 0:
+    ``(seconds, launch counts)``; fails on another exit code."""
+    import torch
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != expect_rc:
+        fail(f"{label}: exit code {rc}, expected {expect_rc}")
+    counts = launch_counts()
+    print(f"[{label}] {seconds:.1f} s; K1 {counts['k1_batch_calls']}, K2 "
+          f"{counts['k2_batch_calls']}, K3 {counts['k3']} calls "
+          f"{counts['k3_regime_calls']}", flush=True)
+    return seconds, counts
+
+
+def expect_gradients(label, counts, B, k1_rows=None):
+    """Every K2 call of a gradient path at ``B`` chains in the regime the
+    rule picks, one K3 call for each; ``k1_rows``: one K1 call at that
+    chain count (the float64 re-selection)."""
+    reg = forward_pick(B)
+    if counts["k2"] < 1 or counts["k3"] != counts["k2"] or \
+            counts["k2_batch_calls"] != {B: {reg: counts["k2"]}}:
+        fail(f"{label}: K2 / K3 launches {counts}, expected every K2 call at "
+             f"B = {B} in the {REGIMES[reg]} regime and as many K3 calls")
+    if k1_rows is not None and counts["k1_batch_calls"] != {
+            k1_rows: {forward_pick(k1_rows): 1}}:
+        fail(f"{label}: K1 launches {counts['k1_batch_calls']}, expected one "
+             f"at B = {k1_rows}")
+
+
+def rel_floor(a, b):
+    """max |a - b| / (|b| + max |b|): rtol with a floor of rtol x max."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / (np.abs(b) + np.abs(b).max())))
+
+
+def same_npz(a, b, label):
+    import numpy as np
+    with np.load(a) as za, np.load(b) as zb:
+        if za.files != zb.files:
+            fail(f"{label}: {a} and {b} hold different fields")
+        for k in za.files:
+            nan = za[k].dtype.kind in "fc"
+            if za[k].dtype != zb[k].dtype or \
+                    not np.array_equal(za[k], zb[k], equal_nan=nan):
+                fail(f"{label}: {os.path.basename(a)}[{k}] differs")
+
+
+def polish_hessian_seconds(tmp):
+    """Seconds of one ``map_polish.hessian_products`` on the card at the
+    committed theta_map (float64, a warm call; the rows one K2 + K3
+    batch)."""
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.cli import map_polish
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.ops import build_objective_fused_grad
+    pipe = load_spain_pipeline(HERE, dtype=torch.float64, device="cuda")
+    vg = build_objective_fused_grad(pipe.space, pipe.params, pipe.data,
+                                    pipe.ts, constraint_mode=REFLECT,
+                                    device="cuda")
+    rows, vg1 = map_polish.engine_rows(vg, "cuda")
+    theta = np.load(os.path.join(tmp, "theta_map.npy"))
+    box = [t.cpu().numpy() for t in (pipe.space.lower, pipe.space.upper,
+                                     pipe.space.sigmas)]
+    g = vg1(theta)[1]
+    map_polish.hessian_products(rows, theta, g, *box)
+    return map_polish.hessian_products(rows, theta, g, *box)[4]
+
+
+def polish_phase(tmp, card, host):
+    """23 (a): ``map_polish --rounds 0`` from the committed theta_map on the
+    card, against the host's run of the same (``host_refs``)."""
+    import numpy as np
+    from mmidv1_tpu_torch.cli import map_polish
+    lap = np.load(os.path.join(HERE, "results", "spain2020", "laplace_mass.npz"))
+    secs, counts = drive_main(map_polish, ["--init", os.path.join(
+        tmp, "theta_map.npy"), "--rounds", "0", "--out", os.path.join(
+        tmp, "polish")], "polish")
+    n_rows = max(counts["k2_batch_calls"], default=0)
+    hess_s = polish_hessian_seconds(tmp)
+    if counts["k2"] != 2 or counts["k3"] != 2 or \
+            sorted(counts["k2_batch_calls"]) != [1, n_rows]:
+        fail(f"polish: K2 / K3 launches {counts}, expected the start point "
+             f"and one batch of Hessian rows")
+    host_s = host.result()["polish_seconds"]
+    c = np.load(os.path.join(tmp, "polish", "laplace_mass.npz"))
+    h = np.load(os.path.join(tmp, "polish_host", "laplace_mass.npz"))
+    rel_ll = abs(float(c["ll_map"]) - POLISH_LL) / POLISH_LL
+    mask_host = bool(np.array_equal(c["free"], h["free"]))
+    vs_committed = [str(n) for n, a, b in zip(lap["names"], c["free"],
+                                              lap["free"]) if a != b]
+    rel_std = float(np.max(np.abs(c["std"] / h["std"] - 1)))
+    rel_cov = float(np.max(np.abs(c["cov_free"] - h["cov_free"]))
+                    / np.abs(h["cov_free"]).max()) if mask_host else None
+    print(f"[polish] ll_map {float(c['ll_map'])!r} vs committed {POLISH_LL!r} "
+          f"(rel {rel_ll:.3e}, bar 1e-10); {int(c['free'].sum())} free, mask "
+          f"{'equal to' if mask_host else 'DIFFERENT from'} the host's; vs the "
+          f"committed mask: {vs_committed or 'equal'}; std card vs host "
+          f"{rel_std:.3e} (bar {POLISH_STD_RTOL:.0e}), cov_free "
+          f"{rel_cov if rel_cov is None else f'{rel_cov:.3e}'} (bar "
+          f"{POLISH_COV_RTOL:.0e}); {secs:.1f} s on {card} (its Hessian of "
+          f"{n_rows} gradient rows {hess_s * 1e3:.1f} ms), {host_s:.1f} s on "
+          f"the host", flush=True)
+    if not (rel_ll <= 1e-10 and mask_host and rel_std <= POLISH_STD_RTOL
+            and rel_cov <= POLISH_COV_RTOL):
+        fail("polish: the card's Laplace mass is off")
+    return dict(seconds=secs, host_seconds=host_s, hessian_seconds=hess_s,
+                ll_map=float(c["ll_map"]),
+                rel_ll=rel_ll, n_free=int(c["free"].sum()),
+                free_vs_committed=vs_committed, rel_std=rel_std,
+                rel_cov=rel_cov, hessian_rows=n_rows, launches=counts)
+
+
+def nuts_iteration_profile(out_dir):
+    """The card's idle share over one more depth-10 iteration of the
+    campaign in ``out_dir``, resumed from its checkpoint and mass (K2 + K3
+    in float32 at 64 chains), from torch.profiler's kernel intervals."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mmidv1_tpu_torch.calibration.nuts import NUTSConfig, run_nuts_logit
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.ops import build_objective_fused_grad
+    from mmidv1_tpu_torch.utils.checkpoint import load_nuts_state
+    pipe = load_spain_pipeline(HERE, dtype=torch.float32, device="cuda")
+    vg = build_objective_fused_grad(pipe.space, pipe.params, pipe.data,
+                                    pipe.ts, constraint_mode=REFLECT,
+                                    device="cuda")
+    state = load_nuts_state(os.path.join(out_dir, "nuts_state.npz"),
+                            device="cuda")
+    mass = np.load(os.path.join(out_dir, "active_mass.npz"))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    cfg = NUTSConfig(iterations=state.it + 1, adaptation_window=1,
+                     max_tree_depth=10)
+    calls = vg.calls
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_nuts_logit(None, pipe.space, cfg, mu=t(mass["mu"]),
+                       scale=t(mass["scale"]), n_chains=64,
+                       value_and_grad_batch=vg, initial_state=state,
+                       power=t(mass["power"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    if not kernels:
+        fail("torch.profiler reported no device time in phase 23")
+    window = max(e for _s, e in kernels) - min(s for s, _e in kernels)
+    busy = busy_ns(kernels)
+    return dict(idle_share=1.0 - busy / window, busy_ms=busy / 1e6,
+                window_ms=window / 1e6, wall_profiled=wall,
+                calls=vg.calls - calls)
+
+
+def sero_engines(dev, dtype):
+    """``(K2 + K3 engine, sero penalty, their composed value_and_grad)`` of
+    the serovalid problem (relaxed bounds, REFLECT)."""
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.calibration.serovalid import (add_sero_term,
+                                                        make_sero_penalty,
+                                                        relax_bounds)
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.ops import build_objective_fused_grad
+    pipe = load_spain_pipeline(HERE, dtype=dtype, device=dev)
+    space, _ = relax_bounds(pipe.space)
+    stream = build_objective_fused_grad(space, pipe.params, pipe.data,
+                                        pipe.ts, constraint_mode=REFLECT,
+                                        dtype=dtype, device=dev)
+    pen = make_sero_penalty(space, pipe.params, pipe.data, pipe.ts,
+                            constraint_mode=REFLECT, dtype=dtype, device=dev)
+    return stream, pen, add_sero_term(stream, pen)
+
+
+def sero_trace():
+    import numpy as np
+    return np.load(os.path.join(SV_DIR, "laplace_trace.npz"))["samples"][-1]
+
+
+def host_refs(tmp):
+    """The host's side of phases 23-25, run in a process of its own while
+    the card works (``--host-refs DIR``): ``map_polish --rounds 0``,
+    ``curvature_probe --points 1``, the composed serovalid value_and_grad at
+    4 float64 chains, and ``make_capped_mass --points 1`` (its Hessian is
+    ``curvature_probe``'s, held card against host in phase 24), into
+    ``DIR``."""
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.cli import (curvature_probe, make_capped_mass,
+                                      map_polish)
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    map_polish.main(["--init", os.path.join(tmp, "theta_map.npy"),
+                     "--rounds", "0", "--device", "cpu", "--out",
+                     os.path.join(tmp, "polish_host")])
+    out = dict(polish_seconds=time.perf_counter() - t0)
+    curvature_probe.main(["--trace", LOGITSEED, "--points", "1", "--device",
+                          "cpu", "--out", os.path.join(tmp,
+                                                       "curvature_cpu.json")])
+    vag = sero_engines("cpu", torch.float64)[2]
+    v, g = vag(torch.as_tensor(sero_trace()[:4], dtype=torch.float64))
+    np.savez(os.path.join(tmp, "sero_host.npz"), value=v.numpy(),
+             grad=g.numpy())
+    t0 = time.perf_counter()
+    make_capped_mass.main(["--trace", LOGITSEED, "--points", "1", "--device",
+                           "cpu", "--out", os.path.join(tmp, "capped.npz")])
+    out["capped_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, "host_refs.json"), "w") as f:
+        json.dump(out, f)
+
+
+class HostRefs:
+    """``host_refs`` in a child process started at once; ``result()`` waits
+    for it and fails the phase with its log if it failed."""
+
+    def __init__(self, tmp):
+        self.tmp = tmp
+        self.log = open(os.path.join(tmp, "host_refs.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--host-refs", tmp],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=HERE)
+        self.t0 = time.perf_counter()
+
+    def result(self):
+        if self.proc.returncode is None:
+            try:
+                self.proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                self.stop()
+                fail("the host references did not finish in 600 s")
+        self.log.flush()
+        if self.proc.returncode != 0:
+            with open(os.path.join(self.tmp, "host_refs.log")) as f:
+                fail("the host references failed:\n" + f.read()[-3000:])
+        with open(os.path.join(self.tmp, "host_refs.json")) as f:
+            return json.load(f)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+class SeroSplit:
+    """While in a ``with`` block, ``calibration.serovalid.add_sero_term``
+    times each composed call's two parts apart (the card synchronised
+    around each): the K2 + K3 stream and the sero term, ms a call."""
+
+    def __enter__(self):
+        from types import SimpleNamespace
+        import torch
+        from mmidv1_tpu_torch.calibration import serovalid
+        self.stream_ms, self.sero_ms = [], []
+        self._saved = add = serovalid.add_sero_term
+
+        def timed(fn, into):
+            def call(x):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(x)
+                torch.cuda.synchronize()
+                into.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        def add_timed(stream, pen):
+            return add(timed(stream, self.stream_ms), SimpleNamespace(
+                value_and_grad=timed(pen.value_and_grad, self.sero_ms)))
+
+        serovalid.add_sero_term = add_timed
+        return self
+
+    def __exit__(self, *exc):
+        from mmidv1_tpu_torch.calibration import serovalid
+        serovalid.add_sero_term = self._saved
+
+
+def sero_split(card, tmp, host, split):
+    """The serovalid campaign's value_and_grad calls at 64 float32 chains,
+    K2 + K3 and the sero term apart (the median of ``split``'s calls after
+    the first); the composed value_and_grad in float64 at 4 chains, card
+    against host (rtol 1e-9, floored)."""
+    import numpy as np
+    import torch
+    trace = sero_trace()
+    stream_ms = float(np.median(split.stream_ms[1:]))
+    sero_ms = float(np.median(split.sero_ms[1:]))
+    vag = sero_engines("cuda", torch.float64)[2]
+    v, g = vag(torch.as_tensor(trace[:4], dtype=torch.float64, device="cuda"))
+    host.result()
+    h = np.load(os.path.join(tmp, "sero_host.npz"))
+    got = {"cuda": (v.cpu().numpy(), g.cpu().numpy()),
+           "cpu": (h["value"], h["grad"])}
+    rel_v = float(np.max(np.abs(got["cuda"][0] - got["cpu"][0])
+                         / np.abs(got["cpu"][0])))
+    rel_g = rel_floor(got["cuda"][1], got["cpu"][1])
+    print(f"[serovalid-nuts] a value_and_grad at 64 float32 chains (median "
+          f"of {len(split.sero_ms) - 1}): K2 + K3 {stream_ms:.1f} ms, the sero "
+          f"term {sero_ms:.1f} ms on {card}; "
+          f"composed float64 card vs host at 4 chains: value {rel_v:.3e}, "
+          f"gradient {rel_g:.3e} (bar 1e-9)", flush=True)
+    if not (rel_v <= 1e-9 and rel_g <= 1e-9):
+        fail("serovalid NUTS: the composed gradient differs card vs host")
+    return dict(stream_ms=stream_ms, sero_ms=sero_ms,
+                calls=len(split.sero_ms), rel_value=rel_v, rel_grad=rel_g)
+
+
+def nuts_recipe_phase(tmp, card, host, grad_shapes):
+    """Phase 23: the polish, the production recipe at depth 10 (and one
+    more iteration profiled), a depth-4 campaign killed and resumed, the
+    stage ladder, the serovalid campaign. K2 / K3 are held against their
+    plain versions at ``grad_shapes`` ``(B, dtype, K3 tolerance)``."""
+    import json as _json
+    from mmidv1_tpu_torch.cli import nuts_campaign as nc
+    t_phase = time.perf_counter()
+    out = dict(k_compare=[compare("float64 dopri5@4 B=257 (NUTS MAP "
+                                  "re-selection)", 257, "float64", "dopri5",
+                                  4, FWD_TOL["float64"], {}, seed=230)])
+    cache = {}
+    for B, d, tol in grad_shapes:
+        out["k_compare"].append(compare_k2(f"{d} dopri5@4 B={B}", B, d,
+                                           "dopri5", 4, FWD_TOL[d], cache,
+                                           seed=231))
+        out["k_compare"].append(compare_k3(f"{d} dopri5@4 B={B}", B, d,
+                                           "dopri5", 4, tol, cache, seed=232))
+    paths = out["paths"] = {}
+
+    d10 = os.path.join(tmp, "nuts_d10")
+    secs, counts = drive_main(nc, NUTS_DEPTH10 + ["--out", d10],
+                              "nuts depth 10")
+    with open(os.path.join(d10, "campaign_metadata.json")) as f:
+        meta = _json.load(f)
+    expect_gradients("nuts depth 10", counts, 64, k1_rows=129)
+    paths["nuts logit-dense depth 10 B=64"] = counts
+    prof = nuts_iteration_profile(d10)
+    out["depth10"] = dict(
+        seconds=secs, grad_evals_per_s_incl_host=meta[
+            "value_and_grads_per_sec_incl_host"],
+        calls_per_s=counts["k2"] / secs, chain_grads_per_s=64 * counts["k2"]
+        / secs, mean_accept=meta["mean_accept"],
+        mean_tree_depth=meta["mean_tree_depth"],
+        best_logl_float64=meta["best_logl_float64"], profile=prof)
+    print(f"[nuts depth 10] 64 chains x 3 iterations: "
+          f"{meta['value_and_grads_per_sec_incl_host']:.4e} grad-evals/s incl. "
+          f"host (the campaign's own count), {counts['k2']} value_and_grad "
+          f"calls = {64 * counts['k2'] / secs:.4e} chain-gradients/s; one more "
+          f"iteration profiled: {prof['calls']} calls, card idle "
+          f"{prof['idle_share']:.3f} of {prof['window_ms']:.0f} ms on {card}",
+          flush=True)
+
+    # depth 4: 8 iterations in 4 segments; the same killed after 2 segments
+    # (the partial file of a third written, its state not) and resumed
+    base = ["--mass", "logit-dense", "--trace", LOGITSEED, "--warm",
+            LOGITSEED, "--chains", "64", "--depth", "4", "--warmup", "2"]
+    full, killed = os.path.join(tmp, "d4_full"), os.path.join(tmp, "d4_kill")
+    _s, c_full = drive_main(nc, base + ["--iterations", "8", "--segments", "4",
+                                        "--out", full], "nuts depth 4")
+    _s, c_kill = drive_main(nc, base + ["--iterations", "4", "--segments", "2",
+                                        "--out", killed], "nuts depth 4 killed")
+    shutil.copy(os.path.join(killed, "partial_samples_0001.npz"),
+                os.path.join(killed, "partial_samples_0002.npz"))
+    _s, c_res = drive_main(nc, base + ["--iterations", "8", "--segments", "4",
+                                       "--resume", "--out", killed],
+                           "nuts depth 4 resumed")
+    for c, label in ((c_full, "full"), (c_kill, "killed"), (c_res, "resumed")):
+        expect_gradients(f"nuts depth 4 {label}", c, 64)
+        paths[f"nuts depth 4 {label} B=64"] = c
+    for name in [f"partial_samples_{s:04d}.npz" for s in range(4)] + [
+            "nuts_state.npz", "samples.npz", "active_mass.npz"]:
+        same_npz(os.path.join(full, name), os.path.join(killed, name),
+                 "nuts depth 4 resume")
+    with open(os.path.join(full, "posterior_trace.csv"), "rb") as fa, \
+            open(os.path.join(killed, "posterior_trace.csv"), "rb") as fb:
+        if fa.read() != fb.read():
+            fail("nuts depth 4 resume: posterior_trace.csv differs")
+    print("[nuts depth 4] killed after 2 of 4 segments (a third partial "
+          "without its state) and resumed: every partial file, the state, "
+          "samples.npz and the trace equal the uninterrupted run's to the bit",
+          flush=True)
+
+    # the stage ladder with the Laplace dense mass
+    secs, c = drive_main(nc, ["--mass", "laplace-dense", "--stages", "2",
+                              "--stage-iterations", "4", "--warmup", "2",
+                              "--iterations", "4", "--segments", "2",
+                              "--chains", "64", "--depth", "3", "--out",
+                              os.path.join(tmp, "stages")], "nuts stages")
+    expect_gradients("nuts stages", c, 64)
+    paths["nuts laplace-dense stages 2 depth 3 B=64"] = c
+
+    # serovalid: the Laplace trace as mass and warm start
+    lt = os.path.join(SV_DIR, "laplace_trace.npz")
+    sv = os.path.join(tmp, "nuts_sv")
+    with SeroSplit() as split:
+        secs, c = drive_main(nc, ["--serovalid", "--mass", "logit-dense",
+                                  "--trace", lt, "--warm", lt, "--chains",
+                                  "64", "--depth", "2", "--warmup", "0",
+                                  "--iterations", "2", "--segments", "1",
+                                  "--out", sv], "nuts serovalid")
+    expect_gradients("nuts serovalid", c, 64)
+    paths["nuts serovalid depth 2 B=64"] = c
+    with open(os.path.join(sv, "campaign_metadata.json")) as f:
+        if _json.load(f)["serovalid"]["severity_floor_div"] != 10.0:
+            fail("nuts serovalid: no serovalid block in the metadata")
+    out["serovalid_seconds"] = secs
+    # the host's references ran meanwhile
+    out["polish"] = polish_phase(tmp, card, host)
+    out["sero_split"] = sero_split(card, tmp, host, split)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[nuts] phase 23: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+def curvature_phase(tmp, card, host):
+    """Phase 24: ``curvature_probe`` card vs host, ``make_capped_mass``, a
+    ``--mass logit-file`` campaign on the capped mass, and
+    ``energy_error_probe`` at its defaults."""
+    import json as _json
+    import numpy as np
+    from mmidv1_tpu_torch.cli import curvature_probe, energy_error_probe
+    from mmidv1_tpu_torch.cli import nuts_campaign as nc
+    t_phase = time.perf_counter()
+    rep = {}
+    curvature_probe.main(["--trace", LOGITSEED, "--points", "1", "--out",
+                          os.path.join(tmp, "curvature_cuda.json")])
+    host.result()
+    for dev in ("cuda", "cpu"):
+        with open(os.path.join(tmp, f"curvature_{dev}.json")) as f:
+            rep[dev] = _json.load(f)
+    c, h = rep["cuda"], rep["cpu"]
+    pairs = [(c["points"][0]["eig_max"], h["points"][0]["eig_max"])] + [
+        (c["masses"][m]["eps_stable"], h["masses"][m]["eps_stable"])
+        for m in c["masses"]]
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    print(f"[curvature] exact Hessian of the logit posterior at 1 point: "
+          f"{c['hessian_seconds'][0]:.1f} s on {card}, "
+          f"{h['hessian_seconds'][0]:.1f} s on the host; eig_max / eps_stable "
+          f"card vs host {rel:.3e} (bar 1e-8)", flush=True)
+    if not rel <= 1e-8:
+        fail("curvature_probe: the card's curvature differs from the host's")
+    # make_capped_mass ran beside the card, on the host (host_refs)
+    mass = os.path.join(tmp, "capped.npz")
+    secs = host.result()["capped_seconds"]
+    z = np.load(mass)
+    if not (np.isfinite(z["scale"]).all() and np.isfinite(z["mu"]).all()):
+        fail("make_capped_mass: non-finite mass")
+    print(f"[make_capped_mass] --points 1 on the host beside the card: "
+          f"{secs:.1f} s, a finite capped mass", flush=True)
+    paths = {}
+    _s, cnt = drive_main(nc, ["--mass", "logit-file", "--mass-file", mass,
+                              "--warm", LOGITSEED, "--chains", "64",
+                              "--depth", "3", "--warmup", "0", "--iterations",
+                              "2", "--segments", "1", "--out",
+                              os.path.join(tmp, "nuts_file")],
+                         "nuts logit-file")
+    expect_gradients("nuts logit-file", cnt, 64)
+    paths["nuts logit-file depth 3 B=64"] = cnt
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = energy_error_probe.run(["--trace", LOGITSEED])
+    e_secs = time.perf_counter() - t0
+    cnt = launch_counts()
+    expect_gradients("energy_error_probe", cnt, 64)
+    if cnt["k2"] != 5 * 130 or any(r["finite"] < 1 for r in rows):
+        fail(f"energy_error_probe: {cnt['k2']} K2 calls, rows {rows}")
+    paths["energy_error_probe B=64"] = cnt
+    accepts = ", ".join("%.0e: %.3f" % (r["eps"], r["accept"]) for r in rows)
+    print(f"[energy] 5 step sizes x 128 leapfrogs at 64 chains in "
+          f"{e_secs:.1f} s: E[accept] {accepts}", flush=True)
+    out = dict(curvature=dict(card=c, host=h, rel=rel),
+               capped_seconds=secs, energy=rows, energy_seconds=e_secs,
+               paths=paths, seconds=time.perf_counter() - t_phase)
+    print(f"[curvature] phase 24: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+def serovalid_chain_phase(tmp, card, campaign_dirs):
+    """Phase 25: ``serovalid_pipeline --maxiter 2``, the committed serovalid
+    MAP through K1, ``serovalid_posterior_summary`` and
+    ``refresh_artifact`` on temporary copies of the artifacts."""
+    import json as _json
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.calibration.serovalid import relax_bounds
+    from mmidv1_tpu_torch.cli import (refresh_artifact,
+                                      serovalid_posterior_summary,
+                                      serovalid_pipeline)
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.data import read_sepaihrd_parameters
+    from mmidv1_tpu_torch.ops import build_objective_fused
+    t_phase = time.perf_counter()
+    zero_counts()
+    t0 = time.perf_counter()
+    # the Laplace's exact Hessian (86 s on the card) is left out here:
+    # phase 24 runs the same Hessian code, tests/test_torch_serovalid_tools.py
+    # holds the Laplace against the JAX script
+    meta = serovalid_pipeline.run(["--maxiter", "2", "--skip-laplace",
+                                   "--out", os.path.join(tmp,
+                                                         "sv_pipeline")])
+    secs = time.perf_counter() - t0
+    cnt = launch_counts()
+    if not (cnt["k1"] >= 1 and cnt["k2"] >= 1 and cnt["k3"] == cnt["k2"]):
+        fail(f"serovalid_pipeline: launches {cnt}")
+    row = meta["reference_bounds_map"]
+    rel_ll = abs(row["ll_poisson_float64"] - SV_REF_ROW[0]) / SV_REF_ROW[0]
+    rel_sero = abs(row["sero_day64"] - SV_REF_ROW[1]) / SV_REF_ROW[1]
+    pipe = load_spain_pipeline(HERE, dtype=torch.float64, device="cuda")
+    space, _ = relax_bounds(pipe.space)
+    calib = read_sepaihrd_parameters(
+        os.path.join(SV_DIR, "calibrated_parameters.txt"), 4,
+        N=pipe.data.population_by_age,
+        M_baseline=pipe.params.M_baseline.cpu().numpy(), dtype=torch.float64,
+        device="cuda")
+    ll = build_objective_fused(space, pipe.params, pipe.data, pipe.ts,
+                               constraint_mode=REFLECT, device="cuda")
+    sv_ll = float(ll(space.extract(calib)[None])[0])
+    rel_map = abs(sv_ll - SV_MAP_LL) / SV_MAP_LL
+    print(f"[serovalid_pipeline] --maxiter 2 --skip-laplace in {secs:.1f} s "
+          f"on {card}: reference-bounds row LL {row['ll_poisson_float64']!r} (rel "
+          f"{rel_ll:.3e}, bar 1e-10), sero {row['sero_day64']!r} (rel "
+          f"{rel_sero:.3e}, bar 1e-9); the committed serovalid MAP through K1 "
+          f"{sv_ll!r} (rel {rel_map:.3e}, bar 1e-10); launches K1 {cnt['k1']}, "
+          f"K2 / K3 {cnt['k2']} / {cnt['k3']}", flush=True)
+    if not (rel_ll <= 1e-10 and rel_sero <= 1e-9 and rel_map <= 1e-10):
+        fail("serovalid_pipeline: an anchor is off")
+
+    art = os.path.join(tmp, "sv_artifact")
+    shutil.copytree(SV_DIR, art)
+    t0 = time.perf_counter()
+    summ = serovalid_posterior_summary.run(["--artifact", art])
+    summ_s = time.perf_counter() - t0
+    with open(os.path.join(SV_DIR, "run_metadata.json")) as f:
+        committed = _json.load(f)["posterior_summary"]
+    rel_q = max(abs(summ["sero_day64"][k] - v) / v
+                for k, v in SV_SERO_Q.items())
+    print(f"[serovalid_posterior_summary] {summ_s:.1f} s: sero quantiles rel "
+          f"{rel_q:.3e} (bar {SV_SERO_RTOL:.0e}), inside-CI "
+          f"{summ['sero_inside_ci_frac']} (committed {SV_INSIDE}), logl "
+          f"quantiles {'equal' if summ['logl'] == committed['logl'] else 'DIFFER'}",
+          flush=True)
+    if not (rel_q <= SV_SERO_RTOL
+            and abs(summ["sero_inside_ci_frac"] - SV_INSIDE) <= 1 / 512
+            and summ["logl"] == committed["logl"]):
+        fail("serovalid_posterior_summary: off the committed summary")
+
+    ref_art = os.path.join(tmp, "ref_artifact")
+    shutil.copytree(os.path.join(HERE, "results", "spain2020"), ref_art,
+                    ignore=shutil.ignore_patterns("analysis"))
+    with open(os.path.join(ref_art, "calibrated_parameters.txt"), "rb") as f:
+        map_before = f.read()
+    refresh_artifact.main([campaign_dirs["reference"], "--artifact", ref_art,
+                           "--draws", "100"])
+    with open(os.path.join(ref_art, "calibrated_parameters.txt"), "rb") as f:
+        kept = f.read() == map_before
+    with open(os.path.join(ref_art, "run_metadata.json")) as f:
+        kept = kept and _json.load(f)["best_logl_float64"] == MAP_LL
+    refused = False
+    try:
+        refresh_artifact.main([campaign_dirs["serovalid"], "--artifact",
+                               ref_art])
+    except SystemExit as e:
+        refused = "serovalid" in str(e)
+    print(f"[refresh_artifact] the depth-10 campaign into a copy of "
+          f"results/spain2020: MAP {'kept' if kept else 'REPLACED'}; the "
+          f"serovalid campaign {'refused' if refused else 'NOT refused'}",
+          flush=True)
+    if not (kept and refused):
+        fail("refresh_artifact: the MAP was replaced or the serovalid "
+             "campaign promoted")
+    out = dict(pipeline_seconds=secs, reference_row=row, rel_ll=rel_ll, rel_sero=rel_sero,
+               serovalid_map_ll=sv_ll, rel_map=rel_map, summary=summ,
+               summary_rel=rel_q, summary_seconds=summ_s,
+               paths={"serovalid_pipeline": cnt},
+               seconds=time.perf_counter() - t_phase)
+    print(f"[serovalid] phase 25: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+def nuts_phases(card, alone=True):
+    """Phases 23-25 in one temporary directory, deleted after; the host's
+    references run beside them in a process of their own. In the whole
+    script (``alone`` False) phases 2b and 6-8 have held K2 / K3 in the
+    regimes and dtypes of these paths already (64 chains in float32 and
+    float64, regime 1, split), so only ``--nuts`` holds them again at the
+    recipe's 64 float32 chains and the polish's 71 float64 rows."""
+    import tempfile
+    import numpy as np
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nuts_")
+    host = None
+    try:
+        t0 = time.perf_counter()
+        np.save(os.path.join(tmp, "theta_map.npy"), np.load(os.path.join(
+            HERE, "results", "spain2020", "laplace_mass.npz"))["theta_map"])
+        host = HostRefs(tmp)
+        recipe = nuts_recipe_phase(
+            tmp, card, host, [(64, "float32", 1e-3), (71, "float64", 1e-9)]
+            if alone else [])
+        curv = curvature_phase(tmp, card, host)
+        sero = serovalid_chain_phase(tmp, card, dict(
+            reference=os.path.join(tmp, "nuts_d10"),
+            serovalid=os.path.join(tmp, "nuts_sv")))
+        out = dict(recipe=recipe, curvature=curv, serovalid=sero,
+                   seconds=time.perf_counter() - t0)
+    finally:
+        if host is not None:
+            host.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[nuts] phases 23-25: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+def nuts_paths(nuts):
+    """Every kernel's launches on phases 23-25, by path."""
+    paths = dict(nuts["recipe"]["paths"])
+    paths.update(nuts["curvature"]["paths"])
+    paths.update(nuts["serovalid"]["paths"])
+    paths["map_polish"] = nuts["recipe"]["polish"]["launches"]
+    return paths
+
+
 def main():
+    if "--host-refs" in sys.argv[1:]:
+        sys.path.insert(0, HERE)
+        host_refs(sys.argv[sys.argv.index("--host-refs") + 1])
+        return 0
     k3_only = "--k3" in sys.argv[1:]
     main_only = "--main" in sys.argv[1:]
     fwd_only = "--fwd" in sys.argv[1:]
     campaign_only = "--campaign" in sys.argv[1:]
     sir_only = "--sir" in sys.argv[1:]
     parallel_only = "--parallel" in sys.argv[1:]
+    nuts_only = "--nuts" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -2646,6 +3357,17 @@ def main():
         print("chip_smoke --parallel: every sharded runner held on the card "
               "against its unsharded run, and AM-MH timed sharded; run "
               "without arguments for the whole check", flush=True)
+        return 0
+
+    if nuts_only:
+        results["nuts"] = nuts_phases(card)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_nuts.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --nuts: the NUTS recipe, the polish, the curvature "
+              "tools and the serovalid chain checked on the card; run without "
+              "arguments for the whole check", flush=True)
         return 0
 
     # 2b. the forward kernels in both regimes
@@ -2794,7 +3516,16 @@ def main():
                        for k, c in par_paths.items() if c["k1"]})
     grad_paths = [(k, c) for k, c in par_paths.items() if c["k2"]]
 
-    # 23. the kernels line, the card, the device line: each kernel's top-level
+    # 23-25. the NUTS recipe, the polish, the curvature tools, serovalid
+    nuts = results["nuts"] = nuts_phases(card, alone=False)
+    for k, c in nuts_paths(nuts).items():
+        if c["k1"]:
+            camp_paths[k] = {f: c[f] for f in ("k1", "k1_regime_calls",
+                                               "k1_batch_calls")}
+        if c["k2"]:
+            grad_paths.append((k, c))
+
+    # 26. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
@@ -2877,7 +3608,8 @@ def main():
         "crossover": [{k: r[k] for k in ("B", "dtype", "picked", "K2_split_ms",
                                          "K2_wide_ms")}
                       for r in fwd["crossover"]],
-        "paths": {name: {k: c[k] for k in ("k2", "k2_regime_calls")}
+        "paths": {name: {k: c[k] for k in ("k2", "k2_regime_calls",
+                                           "k2_batch_calls") if k in c}
                   for name, c in [("nuts B=64", nuts_launches),
                                   ("nuts (sepaihrd_main) B=64", main_nuts),
                                   ("mala B=64", mala),
@@ -2913,8 +3645,12 @@ def main():
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=2, default=str)
     print(card, flush=True)
-    # compact: every path of every kernel is listed on this one line
-    print(json.dumps({"kernels": kernels}, separators=(",", ":")), flush=True)
+    # compact: every path of every kernel is listed on this one line; the
+    # per-configuration checks, regimes and crossovers are in the JSON file
+    print(json.dumps({"kernels": [
+        {k: v for k, v in kern.items()
+         if k not in ("configs", "by_regime", "crossover")}
+        for kern in kernels]}, separators=(",", ":")), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -607,6 +607,25 @@ def logit_transform(theta, lower, upper, eps: float = 1e-6, power=1.0):
     return np.log(u) - np.log1p(-(u ** power)) / power
 
 
+def logit_vag_z(value_and_grad_batch: Callable, lo, width, mu, S, k):
+    """``vag_z(zs) -> (logp + log|J|, grad_z)`` in the whitened power-logit
+    coordinates of :func:`run_nuts_logit`: ``y = mu + S z``, ``theta = lo +
+    width * sigmoid(k y)^(1/k)``, ``value_and_grad_batch`` at theta."""
+    log_w_sum = torch.sum(torch.log(width))
+
+    def vag_z(zs):
+        ys = mu[None, :] + zs @ S.T
+        u = torch.exp(F.logsigmoid(k * ys) / k)
+        sig_m = torch.sigmoid(-k * ys)
+        lp, g = value_and_grad_batch(lo[None, :] + width[None, :] * u)
+        gy = g * (width[None, :] * u * sig_m) + (sig_m - k * torch.sigmoid(k * ys))
+        return lp + (log_w_sum + torch.sum(F.logsigmoid(k * ys) / k
+                                           + F.logsigmoid(-k * ys), dim=-1)), \
+            gy @ S
+
+    return vag_z
+
+
 def run_nuts_logit(loglik_batch: Optional[Callable], space: ParameterSpace,
                    cfg: NUTSConfig, *, mu: torch.Tensor, scale: torch.Tensor,
                    seed: int = 0, n_chains: int = 1, jitter: float = 1.0,
@@ -648,13 +667,7 @@ def run_nuts_logit(loglik_batch: Optional[Callable], space: ParameterSpace,
         return log_w_sum + torch.sum(F.logsigmoid(k * ys) / k
                                      + F.logsigmoid(-k * ys), dim=-1)
 
-    def vag_z(zs):
-        ys = mu[None, :] + zs @ S.T
-        u = u_of(ys)
-        sig_m = torch.sigmoid(-k * ys)
-        lp, g = value_and_grad_batch(lo[None, :] + width[None, :] * u)
-        gy = g * (width[None, :] * u * sig_m) + (sig_m - k * torch.sigmoid(k * ys))
-        return lp + log_jac(ys), gy @ S
+    vag_z = logit_vag_z(value_and_grad_batch, lo, width, mu, S, k)
 
     if init is not None:
         y0 = logit_transform(init.to(dtype), lo, width + lo, power=k)

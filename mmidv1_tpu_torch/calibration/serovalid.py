@@ -118,3 +118,17 @@ def make_sero_penalty(space, base_params, data, ts, *, substeps: int = 4,
     penalty.sero_of = sero_of
     penalty.value_and_grad = value_and_grad
     return penalty
+
+
+def add_sero_term(stream_value_and_grad, penalty):
+    """``value_and_grad_batch`` of the joint density: a stream engine's
+    (e.g. K2 + K3's) value and gradient plus the sero term's from
+    ``penalty.value_and_grad``; the two add, as the JAX package composes
+    the Pallas stream with XLA autodiff of the sero term."""
+
+    def value_and_grad(thetas):
+        v1, g1 = stream_value_and_grad(thetas)
+        v2, g2 = penalty.value_and_grad(thetas)
+        return v1 + v2, g1 + g2
+
+    return value_and_grad

@@ -9,9 +9,12 @@
 | sir_model / sir_pop_var / sir_stochastic | python -m mmidv1_tpu_torch.cli.sir_mains {deterministic,popvar,stochastic} |
 
 Or dispatch through ``python -m mmidv1_tpu_torch.cli <name> [args...]``. Each
-runs on the card unless given ``--device cpu``. ``calibrate_spain`` and
-``production_campaign`` are scripts of this repository, not reference
-executables, and stay out of the table.
+runs on the card unless given ``--device cpu``. ``calibrate_spain``,
+``production_campaign`` and the NUTS recipe's tools (``nuts_campaign``,
+``map_polish``, ``curvature_probe``, ``make_capped_mass``,
+``energy_error_probe``, ``refresh_artifact``, ``serovalid_pipeline``,
+``make_laplace_trace``, ``serovalid_posterior_summary``) are scripts of
+this repository, not reference executables, and stay out of the table.
 """
 
 COMMANDS = {
