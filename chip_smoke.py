@@ -9,6 +9,7 @@
     python3 chip_smoke.py --sir    # build, then phases 18-21 only (no ok line)
     python3 chip_smoke.py --parallel  # build, then phase 22 only (no ok line)
     python3 chip_smoke.py --nuts   # build, then phases 23-25 only (no ok line)
+    python3 chip_smoke.py --probes # build, then phases 26-28 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -211,10 +212,12 @@ Phases (any failure exits non-zero before the final line):
      the re-selection. The host's runs (the polish, phase 24's curvature,
      the composed value_and_grad) go in a process of their own beside the
      card's (``--host-refs``);
- 24. ``curvature_probe --points 1`` on the card and on the host (the exact
-     float64 Hessian of the logit posterior, reverse over reverse through
-     the eager solve): eig_max and eps_stable to rtol 1e-8, and the seconds
-     of each Hessian; ``make_capped_mass --points 1`` on the host beside
+ 24. under ``--nuts``, ``curvature_probe --points 1`` on the card and on the
+     host (the exact float64 Hessian of the logit posterior, reverse over
+     reverse through the eager solve, 50-144 s on the card: left out of the
+     whole script since phases 26-28 came): eig_max and eps_stable to rtol
+     1e-8, and the seconds of each Hessian; ``make_capped_mass --points 1``
+     on the host beside
      the card (the same Hessian code: 66.5 s more on an H100);
      ``nuts_campaign --mass logit-file`` on the capped mass at depth 3;
      ``energy_error_probe`` at its defaults (64 chains, 128 leapfrogs, 5 step
@@ -230,12 +233,41 @@ Phases (any failure exits non-zero before the final line):
      quantiles exact; ``refresh_artifact`` of phase 23's depth-10 campaign
      into a copy of ``results/spain2020``: the committed MAP kept, and the
      serovalid campaign refused;
- 26. print the kernels line and, last, the device line.
+ 26. the native IO layer and the simulated dynamics: ``utils/native``'s
+     library builds (g++) and loads; ``CalibrationData.from_csv`` gives the
+     same arrays with it and with ``MMIDV1_NO_NATIVE=1``, equal in every
+     bit; ``write_posterior_trace`` writes the same bytes both ways at
+     phase 16's AM campaign size (6 x 8192 rows x 63 values) and at the
+     checkpoints' 5000 rows, the seconds of each beside the card's name;
+     ``data_visualization.simulate_frame`` (306 days, float32, dopri5@4) on
+     the card against the host at rtol ``DYN_RTOL``;
+ 27. ``mala_rematch`` at 2048 float32 chains, cash_karp@3, REFLECT: K1 and
+     K2 held against their plain versions at that shape (rtol 5e-6), K3 in
+     regime 2 with rows 0-511 of its 2048-row call against the plain
+     version on those rows (per-chain 2-norm 1e-3), each timed; then its
+     ``main`` with depth cut from ``--steps 2000 --burn 500`` to 40 / 10
+     and one ``--fixed-eps``, counted from 0: every K1 call at 2048 in the
+     regime the rule picks, every K2 call at 2048 with one K3 call each,
+     all K3 in regime 2; every row finite, its chain-steps/s printed;
+ 28. the four seroprevalence probes, float64, dopri5@4, REFLECT, at full
+     width: on each box (the reference bounds, "B", "C") the composed joint
+     value_and_grad (K2 + K3 plus the sero term) at the MAP card vs host
+     (the ``--host-refs`` child; rtol 1e-9, floored), K1 / K2 / K3 at B = 1
+     timed beside their bounds (under ``--probes`` also their plain
+     versions, on box C), K2 + K3's ms and the sero term's seconds a call;
+     then each probe's ``main`` with depth cut to ``--maxiter 2 --rounds
+     1`` (the ridge's 7-point k grid, one ladder rung a variant), counted
+     from 0 (K1, K2 at B = 1, one K3 call each, regime 1), its fixed-point
+     rows against ``results/sero_*.json``: LL rtol 1e-10, sero 1e-9,
+     ``grad_seed_exposed`` 1e-8, ``grad_runup_days`` exactly 0, the ridge's
+     clipped names equal;
+ 29. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -2802,26 +2834,36 @@ def sero_trace():
     return np.load(os.path.join(SV_DIR, "laplace_trace.npz"))["samples"][-1]
 
 
-def host_refs(tmp):
-    """The host's side of phases 23-25, run in a process of its own while
-    the card works (``--host-refs DIR``): ``map_polish --rounds 0``,
-    ``curvature_probe --points 1``, the composed serovalid value_and_grad at
-    4 float64 chains, and ``make_capped_mass --points 1`` (its Hessian is
-    ``curvature_probe``'s, held card against host in phase 24), into
-    ``DIR``."""
+def host_refs(tmp, parts):
+    """The host's side of phases 23-25 and 28, run in a process of its own
+    while the card works (``--host-refs DIR PARTS``), into ``DIR``: for phase
+    28 (``parts`` "probes" or "all", first) ``probe_host_refs``; for phases
+    23-25 ("nuts" or "all") ``map_polish --rounds 0``, ``curvature_probe
+    --points 1`` (only for "nuts": the whole script leaves phase 24's card
+    run of it out), the composed serovalid value_and_grad at 4 float64
+    chains, and ``make_capped_mass --points 1`` (its Hessian is
+    ``curvature_probe``'s, held card against host in phase 24)."""
     import numpy as np
     import torch
     from mmidv1_tpu_torch.cli import (curvature_probe, make_capped_mass,
                                       map_polish)
     torch.set_num_threads(4)
+    out = {}
+    if parts in ("probes", "all"):
+        out["probes"] = probe_host_refs(tmp)
+    if parts not in ("nuts", "all"):
+        with open(os.path.join(tmp, "host_refs.json"), "w") as f:
+            json.dump(out, f)
+        return
     t0 = time.perf_counter()
     map_polish.main(["--init", os.path.join(tmp, "theta_map.npy"),
                      "--rounds", "0", "--device", "cpu", "--out",
                      os.path.join(tmp, "polish_host")])
-    out = dict(polish_seconds=time.perf_counter() - t0)
-    curvature_probe.main(["--trace", LOGITSEED, "--points", "1", "--device",
-                          "cpu", "--out", os.path.join(tmp,
-                                                       "curvature_cpu.json")])
+    out["polish_seconds"] = time.perf_counter() - t0
+    if parts == "nuts":                   # phase 24's card vs host check
+        curvature_probe.main(["--trace", LOGITSEED, "--points", "1",
+                              "--device", "cpu", "--out",
+                              os.path.join(tmp, "curvature_cpu.json")])
     vag = sero_engines("cpu", torch.float64)[2]
     v, g = vag(torch.as_tensor(sero_trace()[:4], dtype=torch.float64))
     np.savez(os.path.join(tmp, "sero_host.npz"), value=v.numpy(),
@@ -2838,11 +2880,12 @@ class HostRefs:
     """``host_refs`` in a child process started at once; ``result()`` waits
     for it and fails the phase with its log if it failed."""
 
-    def __init__(self, tmp):
+    def __init__(self, tmp, parts):
         self.tmp = tmp
         self.log = open(os.path.join(tmp, "host_refs.log"), "w")
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--host-refs", tmp],
+            [sys.executable, os.path.abspath(__file__), "--host-refs", tmp,
+             parts],
             stdout=self.log, stderr=subprocess.STDOUT, cwd=HERE)
         self.t0 = time.perf_counter()
 
@@ -3036,33 +3079,36 @@ def nuts_recipe_phase(tmp, card, host, grad_shapes):
     return out
 
 
-def curvature_phase(tmp, card, host):
-    """Phase 24: ``curvature_probe`` card vs host, ``make_capped_mass``, a
-    ``--mass logit-file`` campaign on the capped mass, and
+def curvature_phase(tmp, card, host, alone):
+    """Phase 24: ``curvature_probe`` card vs host (only under ``--nuts``,
+    ``alone``: its exact Hessian is 50-144 s on the card), ``make_capped_mass``,
+    a ``--mass logit-file`` campaign on the capped mass, and
     ``energy_error_probe`` at its defaults."""
     import json as _json
     import numpy as np
     from mmidv1_tpu_torch.cli import curvature_probe, energy_error_probe
     from mmidv1_tpu_torch.cli import nuts_campaign as nc
     t_phase = time.perf_counter()
-    rep = {}
-    curvature_probe.main(["--trace", LOGITSEED, "--points", "1", "--out",
-                          os.path.join(tmp, "curvature_cuda.json")])
-    host.result()
-    for dev in ("cuda", "cpu"):
-        with open(os.path.join(tmp, f"curvature_{dev}.json")) as f:
-            rep[dev] = _json.load(f)
-    c, h = rep["cuda"], rep["cpu"]
-    pairs = [(c["points"][0]["eig_max"], h["points"][0]["eig_max"])] + [
-        (c["masses"][m]["eps_stable"], h["masses"][m]["eps_stable"])
-        for m in c["masses"]]
-    rel = max(abs(a - b) / abs(b) for a, b in pairs)
-    print(f"[curvature] exact Hessian of the logit posterior at 1 point: "
-          f"{c['hessian_seconds'][0]:.1f} s on {card}, "
-          f"{h['hessian_seconds'][0]:.1f} s on the host; eig_max / eps_stable "
-          f"card vs host {rel:.3e} (bar 1e-8)", flush=True)
-    if not rel <= 1e-8:
-        fail("curvature_probe: the card's curvature differs from the host's")
+    rep, rel = {}, None
+    if alone:
+        curvature_probe.main(["--trace", LOGITSEED, "--points", "1", "--out",
+                              os.path.join(tmp, "curvature_cuda.json")])
+        host.result()
+        for dev in ("cuda", "cpu"):
+            with open(os.path.join(tmp, f"curvature_{dev}.json")) as f:
+                rep[dev] = _json.load(f)
+        c, h = rep["cuda"], rep["cpu"]
+        pairs = [(c["points"][0]["eig_max"], h["points"][0]["eig_max"])] + [
+            (c["masses"][m]["eps_stable"], h["masses"][m]["eps_stable"])
+            for m in c["masses"]]
+        rel = max(abs(a - b) / abs(b) for a, b in pairs)
+        print(f"[curvature] exact Hessian of the logit posterior at 1 point: "
+              f"{c['hessian_seconds'][0]:.1f} s on {card}, "
+              f"{h['hessian_seconds'][0]:.1f} s on the host; eig_max / "
+              f"eps_stable card vs host {rel:.3e} (bar 1e-8)", flush=True)
+        if not rel <= 1e-8:
+            fail("curvature_probe: the card's curvature differs from the "
+                 "host's")
     # make_capped_mass ran beside the card, on the host (host_refs)
     mass = os.path.join(tmp, "capped.npz")
     secs = host.result()["capped_seconds"]
@@ -3092,7 +3138,7 @@ def curvature_phase(tmp, card, host):
     accepts = ", ".join("%.0e: %.3f" % (r["eps"], r["accept"]) for r in rows)
     print(f"[energy] 5 step sizes x 128 leapfrogs at 64 chains in "
           f"{e_secs:.1f} s: E[accept] {accepts}", flush=True)
-    out = dict(curvature=dict(card=c, host=h, rel=rel),
+    out = dict(curvature=dict(rep, rel=rel),
                capped_seconds=secs, energy=rows, energy_seconds=e_secs,
                paths=paths, seconds=time.perf_counter() - t_phase)
     print(f"[curvature] phase 24: {out['seconds']:.1f} s on {card}", flush=True)
@@ -3202,37 +3248,49 @@ def serovalid_chain_phase(tmp, card, campaign_dirs):
     return out
 
 
-def nuts_phases(card, alone=True):
-    """Phases 23-25 in one temporary directory, deleted after; the host's
-    references run beside them in a process of their own. In the whole
-    script (``alone`` False) phases 2b and 6-8 have held K2 / K3 in the
-    regimes and dtypes of these paths already (64 chains in float32 and
-    float64, regime 1, split), so only ``--nuts`` holds them again at the
-    recipe's 64 float32 chains and the polish's 71 float64 rows."""
-    import tempfile
-    import numpy as np
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_nuts_")
-    host = None
-    try:
-        t0 = time.perf_counter()
-        np.save(os.path.join(tmp, "theta_map.npy"), np.load(os.path.join(
-            HERE, "results", "spain2020", "laplace_mass.npz"))["theta_map"])
-        host = HostRefs(tmp)
-        recipe = nuts_recipe_phase(
-            tmp, card, host, [(64, "float32", 1e-3), (71, "float64", 1e-9)]
-            if alone else [])
-        curv = curvature_phase(tmp, card, host)
-        sero = serovalid_chain_phase(tmp, card, dict(
-            reference=os.path.join(tmp, "nuts_d10"),
-            serovalid=os.path.join(tmp, "nuts_sv")))
-        out = dict(recipe=recipe, curvature=curv, serovalid=sero,
-                   seconds=time.perf_counter() - t0)
-    finally:
-        if host is not None:
-            host.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
+def nuts_phases(card, tmp, host, alone=True):
+    """Phases 23-25 in the temporary directory ``tmp`` of ``HostSide``,
+    whose child process ``host`` computes the host's references beside
+    them. In the whole script (``alone`` False) phases 2b and 6-8 have held
+    K2 / K3 in the regimes and dtypes of these paths already (64 chains in
+    float32 and float64, regime 1, split), so only ``--nuts`` holds them
+    again at the recipe's 64 float32 chains and the polish's 71 float64
+    rows."""
+    t0 = time.perf_counter()
+    recipe = nuts_recipe_phase(
+        tmp, card, host, [(64, "float32", 1e-3), (71, "float64", 1e-9)]
+        if alone else [])
+    curv = curvature_phase(tmp, card, host, alone)
+    sero = serovalid_chain_phase(tmp, card, dict(
+        reference=os.path.join(tmp, "nuts_d10"),
+        serovalid=os.path.join(tmp, "nuts_sv")))
+    out = dict(recipe=recipe, curvature=curv, serovalid=sero,
+               seconds=time.perf_counter() - t0)
     print(f"[nuts] phases 23-25: {out['seconds']:.1f} s on {card}", flush=True)
     return out
+
+
+class HostSide:
+    """A temporary directory and, started in it at once, the host's
+    references of ``parts`` ("nuts": phases 23-25, "probes": phase 28, "all":
+    both) in a child process (``HostRefs``); on exit the child is stopped and
+    the directory deleted."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def __enter__(self):
+        import tempfile
+        import numpy as np
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+        np.save(os.path.join(self.tmp, "theta_map.npy"), np.load(os.path.join(
+            HERE, "results", "spain2020", "laplace_mass.npz"))["theta_map"])
+        self.host = HostRefs(self.tmp, self.parts)
+        return self.tmp, self.host
+
+    def __exit__(self, *exc):
+        self.host.stop()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def nuts_paths(nuts):
@@ -3244,10 +3302,460 @@ def nuts_paths(nuts):
     return paths
 
 
+# ------------------------------------------------------------- phases 26-28
+# The last slice on the card: the native IO layer and the simulated
+# dynamics (26), mala_rematch at its 2048 chains (27), the four
+# seroprevalence probes at full width (28). Every main writes into a
+# temporary directory; nothing under results/ is written.
+TRACE_SHAPE = (6, 8192, 62)   # phase 16's AM campaign: 200 its, burn 50, thin 25
+CKPT_ROWS = 5000              # the checkpoints' trace (utils/checkpoint)
+# simulate_frame, float32, card vs host: the bar of
+# tests/test_torch_dynamics.py (10x the host's JAX-vs-port reading, 1.12e-6)
+DYN_RTOL = 1e-5
+REMATCH_B, REMATCH_STEPS, REMATCH_BURN = 2048, 40, 10   # depth cut from 2000 / 500
+K3_PLAIN_ROWS = 512           # the plain K3's saved tensors (phase 7)
+PROBE_SE, PROBE_TARGET = 0.0028, 0.048
+PROBE_BOXES = ("reference", "B", "C")
+PROBE_MAINS = {            # depth cut: --maxiter 2 --rounds 1, one ladder rung
+    "sero_profile_probe": ["--maxiter", "2", "--rounds", "1"],
+    "sero_ridge_scan": ["--maxiter", "2"],
+    "sero_sensitivity": ["--maxiter", "2", "--rounds", "1"],
+    "sero_force_profile": ["--maxiter", "2", "--se-ladder", "0.01"],
+}
+
+
+class NativeOff:
+    """While in a ``with`` block, ``MMIDV1_NO_NATIVE=1`` and the native
+    library unloaded: every IO entry point takes its Python path."""
+
+    def __enter__(self):
+        from mmidv1_tpu_torch.utils import native
+        self.saved = (native._lib, native._tried,
+                      os.environ.get("MMIDV1_NO_NATIVE"))
+        native._lib, native._tried = None, False
+        os.environ["MMIDV1_NO_NATIVE"] = "1"
+        if native.get_lib() is not None:
+            fail("MMIDV1_NO_NATIVE=1 did not switch the native library off")
+        return self
+
+    def __exit__(self, *exc):
+        from mmidv1_tpu_torch.utils import native
+        native._lib, native._tried, env = self.saved
+        if env is None:
+            os.environ.pop("MMIDV1_NO_NATIVE", None)
+        else:
+            os.environ["MMIDV1_NO_NATIVE"] = env
+
+
+def native_phase(card, tmp):
+    """Phase 26: the native library loads; ``from_csv`` and
+    ``write_posterior_trace`` give the same arrays and bytes with it and
+    without; ``simulate_frame`` on the card against the host."""
+    import numpy as np
+    from mmidv1_tpu_torch.cli import data_visualization as dv
+    from mmidv1_tpu_torch.data import CalibrationData, read_params_to_calibrate
+    from mmidv1_tpu_torch.utils import native
+    from mmidv1_tpu_torch.utils.checkpoint import write_posterior_trace
+    t_phase = time.perf_counter()
+    lib = native.get_lib()
+    if lib is None:
+        fail("the native IO library did not build or load")
+    csv = os.path.join(HERE, "data", "processed", "processed_data.csv")
+    read = {}
+    for how in ("native", "python"):
+        with NativeOff() if how == "python" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            read[how] = (CalibrationData.from_csv(csv, "2020-03-01",
+                                                  "2020-12-31"),
+                         time.perf_counter() - t0)
+    a, b = read["native"][0], read["python"][0]
+    for f in ("new_confirmed", "new_deaths", "new_hospitalizations",
+              "new_icu", "cumulative_confirmed", "cumulative_deaths",
+              "cumulative_hospitalizations", "cumulative_icu",
+              "population_by_age"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            fail(f"from_csv: {f} differs between the native and Python reads")
+    if a.dates != b.dates:
+        fail("from_csv: the dates differ between the native and Python reads")
+    names = read_params_to_calibrate(os.path.join(
+        HERE, "data", "configuration", "params_to_calibrate.txt"))
+    rng = np.random.default_rng(26)
+    samples = rng.uniform(0.0, 1.0, TRACE_SHAPE) * 10.0 ** rng.integers(
+        -6, 5, TRACE_SHAPE[-1])
+    logps = 1.4e6 + rng.normal(size=TRACE_SHAPE[:2]) * 50.0
+    traces = {}
+    for label, max_rows in (("campaign", None), ("checkpoint", CKPT_ROWS)):
+        secs = {}
+        for how in ("native", "python"):
+            path = os.path.join(tmp, f"trace_{label}_{how}.csv")
+            with NativeOff() if how == "python" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                write_posterior_trace(path, samples, logps, names,
+                                      max_rows=max_rows)
+                secs[how] = time.perf_counter() - t0
+        with open(os.path.join(tmp, f"trace_{label}_native.csv"), "rb") as f:
+            nat = f.read()
+        with open(os.path.join(tmp, f"trace_{label}_python.csv"), "rb") as f:
+            py = f.read()
+        rows = nat.count(b"\n") - 1
+        if nat != py:
+            fail(f"write_posterior_trace ({label}, {rows} rows): the native "
+                 f"and Python files differ")
+        traces[label] = dict(rows=rows, columns=TRACE_SHAPE[-1] + 1,
+                             bytes=len(nat), native_s=secs["native"],
+                             python_s=secs["python"])
+        print(f"[native] write_posterior_trace {label}: {rows} rows x "
+              f"{TRACE_SHAPE[-1] + 1} values, {len(nat)} bytes, equal; "
+              f"native {secs['native']:.3f} s, Python {secs['python']:.3f} s "
+              f"({secs['python'] / secs['native']:.1f}x) on the host of "
+              f"{card}", flush=True)
+    sim = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sim[dev] = dv.simulate_frame(device=dev)
+        sim[f"{dev}_s"] = time.perf_counter() - t0
+    (tc, fc), (th, fh) = sim["cuda"], sim["cpu"]
+    rel = float(np.max(np.abs(fc.astype(np.float64) - fh)
+                       / np.maximum(np.abs(fh.astype(np.float64)), 1e-300)))
+    if not (np.array_equal(tc, th) and fc.shape == (306, 44)
+            and np.isfinite(fc).all() and rel <= DYN_RTOL):
+        fail(f"simulate_frame: card vs host rel err {rel:.3e} (bar "
+             f"{DYN_RTOL:.0e}), shape {fc.shape}")
+    out = dict(from_csv_native_s=read["native"][1],
+               from_csv_python_s=read["python"][1], traces=traces,
+               simulate_rel=rel, simulate_card_s=sim["cuda_s"],
+               simulate_host_s=sim["cpu_s"])
+    print(f"[native] library {native.library_path()}: from_csv equal in "
+          f"every bit (native {read['native'][1]:.3f} s, Python "
+          f"{read['python'][1]:.3f} s); simulate_frame (306 days, float32 "
+          f"dopri5@4) card {sim['cuda_s']:.2f} s, host {sim['cpu_s']:.2f} s, "
+          f"rel err {rel:.3e} (bar {DYN_RTOL:.0e})", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def kernel_bounds(B, dtype_name, args, kw, n_obs, ck):
+    """K1's bound (as in ``compare``) and K2's / K3's (``adjoint_bounds``)
+    for the kernel inputs ``args`` of ``B`` chains."""
+    from mmidv1_tpu_torch.ops.sepaihrd_fused import op_count
+    elem = 8 if dtype_name == "float64" else 4
+    nbytes = sum(a.numel() for a in args[:6]) * elem + B * elem
+    flops = B * op_count(kw["tableau"], kw["substeps"], int(sum(kw["run_count"])),
+                         n_obs)
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
+    k1 = dict(bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
+              bound_by="bytes" if t_b > t_o else "operations")
+    adj = adjoint_bounds(B, dtype_name, kw, n_obs, args, ck)
+    return dict(k1=k1, k2=adj["fwd"], k3=adj["bwd"])
+
+
+def rematch_grad_case(cache):
+    """K2 at mala_rematch's 2048 float32 chains, cash_karp@3, REFLECT,
+    against its plain version (rtol 5e-6); K3 on the same call (regime 2 by
+    the rule) with rows 0-511 against the plain version on those rows
+    (per-chain 2-norm 1e-3); both timed (CUDA events) beside their bounds."""
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_adjoint_reference,
+                                      fused_forward_ckpt,
+                                      fused_forward_ckpt_reference)
+    B, tab, sub = REMATCH_B, "cash_karp", 3
+    case = f"float32 {tab}@{sub} B={B} REFLECT (mala_rematch)"
+    _vg, args, kw, _th = spain_case(cache, "float32", REFLECT, tab, sub, B, 271)
+    y0, agevec, scal, beff, obs, valid, M = args
+    ll, ck = fused_forward_ckpt(*args, **kw)
+    k2_regime = fused_forward_ckpt.regime
+    ref2, k2_plain_ms = cuda_once(lambda: fused_forward_ckpt_reference(*args,
+                                                                       **kw))
+    k2_check = check_k2(case, (ll, ck), ref2, FWD_TOL["float32"])
+    g = torch.ones_like(ll)
+    k3_args = (agevec, scal, beff, obs, valid, ck, g, M)
+    grads = fused_adjoint(*k3_args, **kw)
+    k3_regime = fused_adjoint.regime
+    if k3_regime != 2:
+        fail(f"K3 at {B} float32 chains ran regime {k3_regime}, not 2")
+    n = K3_PLAIN_ROWS
+    cut = lambda t: t[..., :n].contiguous()
+    ref3, k3_plain_ms = cuda_once(lambda: fused_adjoint_reference(
+        cut(agevec), cut(scal), cut(beff), obs, valid, cut(ck), cut(g), M,
+        **kw))
+    k3_check = check_k3(f"{case} rows 0-{n - 1}, regime 2", tuple(
+        cut(t) for t in grads), ref3, "float32", 1e-3)
+    k2_ms = cuda_ms(lambda: fused_forward_ckpt(*args, **kw), 10)
+    k3_ms = cuda_ms(lambda: fused_adjoint(*k3_args, **kw), 10)
+    bounds = kernel_bounds(B, "float32", args, kw, obs.shape[0], ck)
+    print(f"[mala_rematch] {case}: K2 {k2_ms:.3f} ms ({REGIMES[k2_regime]}; "
+          f"bound {bounds['k2']['bound_ms']:.4f}, {bounds['k2']['bound_by']}; "
+          f"plain {k2_plain_ms:.1f} ms), K3 {k3_ms:.3f} ms (regime 2; bound "
+          f"{bounds['k3']['bound_ms']:.4f}, {bounds['k3']['bound_by']}; plain "
+          f"on {n} rows {k3_plain_ms:.1f} ms)", flush=True)
+    return dict(case=case, k2_regime=k2_regime, k3_regime=k3_regime,
+                k2_ms=k2_ms, k3_ms=k3_ms, k2_plain_ms=k2_plain_ms,
+                k3_plain_ms=k3_plain_ms, k3_plain_rows=n, k2_check=k2_check,
+                k3_check=k3_check, k2_bound=bounds["k2"],
+                k3_bound=bounds["k3"])
+
+
+def rematch_phase(card, tmp, cache):
+    """Phase 27: K1 / K2 / K3 held at mala_rematch's shapes, then its
+    ``main`` at 2048 float32 chains, depth cut to ``REMATCH_STEPS`` steps
+    and one fixed eps, every kernel counted from 0."""
+    import math
+    from mmidv1_tpu_torch.cli import mala_rematch
+    t_phase = time.perf_counter()
+    k1 = compare(f"float32 cash_karp@3 B={REMATCH_B} (mala_rematch AM-MH)",
+                 REMATCH_B, "float32", "cash_karp", 3, FWD_TOL["float32"],
+                 cache, seed=270)
+    grad = rematch_grad_case(cache)
+    out_json = os.path.join(tmp, "mala_rematch.json")
+    secs, counts = drive_main(mala_rematch, [
+        "--chains", str(REMATCH_B), "--steps", str(REMATCH_STEPS), "--burn",
+        str(REMATCH_BURN), "--fixed-eps", "0.15", "--out", out_json],
+        "mala_rematch")
+    B, n = REMATCH_B, REMATCH_STEPS + 1
+    reg = forward_pick(B)
+    if counts["k1_batch_calls"] != {B: {reg: n}}:
+        fail(f"mala_rematch: K1 launches {counts['k1_batch_calls']}, expected "
+             f"{n} at B = {B} in the {REGIMES[reg]} regime")
+    expect_gradients("mala_rematch", counts, B)
+    if counts["k2"] != 2 * n or counts["k3_regime_calls"] != {1: 0, 2: 2 * n}:
+        fail(f"mala_rematch: K2 / K3 launches {counts}, expected {2 * n} "
+             f"each, K3 all in regime 2")
+    with open(out_json) as f:
+        rows = json.load(f)["rows"]
+    for r in rows:
+        if not all(math.isfinite(v) for k, v in r.items() if k != "sampler"):
+            fail(f"mala_rematch: a non-finite number in {r}")
+        print(f"[mala_rematch] {r['sampler']}: {r['steps_per_sec']:.4e} "
+              f"chain-steps/s, acceptance {r['acceptance']:.3f}, min-ESS "
+              f"{r['min_ess']:.1f} in {r['wall_s']:.2f} s ({B} float32 "
+              f"chains x {REMATCH_STEPS} steps) on {card}", flush=True)
+    out = dict(k1_compare=k1, grad=grad, seconds_main=secs, launches=counts,
+               rows=rows, seconds=time.perf_counter() - t_phase)
+    print(f"[mala_rematch] phase 27: {out['seconds']:.1f} s on {card}",
+          flush=True)
+    return out
+
+
+def probe_host_refs(tmp):
+    """The host's side of phase 28: the composed joint value_and_grad at the
+    MAP nudged into each box, float64, into ``DIR/probe_host.npz``."""
+    import numpy as np
+    from mmidv1_tpu_torch.cli import _sero_probe as sp
+    t0 = time.perf_counter()
+    pl = sp.Pipeline(device="cpu")
+    theta_map = pl.theta_from_txt(sp.MAP_TXT)
+    ref = {}
+    for variant in PROBE_BOXES:
+        box = pl.box(variant)
+        v, g = box.joint_vg(PROBE_SE, PROBE_TARGET)(
+            sp.nudge(theta_map, box.lo, box.hi))
+        ref[f"{variant}_value"], ref[f"{variant}_grad"] = np.array(v), g
+    np.savez(os.path.join(tmp, "probe_host.npz"), **ref)
+    return dict(seconds=time.perf_counter() - t0)
+
+
+def box_kernels(box, th, plain):
+    """K1, K2 and K3 at B = 1, float64, dopri5@4 on the kernel inputs of
+    ``th`` on ``box`` (REFLECT against its bounds): their times (CUDA
+    events, 10 launches), regimes and bounds; with ``plain`` their plain
+    versions' times (one run each)."""
+    import torch
+    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_adjoint_reference,
+                                      fused_forward_ckpt,
+                                      fused_forward_ckpt_reference,
+                                      fused_objective)
+    from mmidv1_tpu_torch.ops.sepaihrd_fused import fused_objective_reference
+    t = torch.as_tensor(th[None], dtype=torch.float64, device="cuda")
+    args, kw, _inf = box.k1.prep.kernel_args(t)
+    kw = dict(kw, substeps=4, tableau="dopri5")
+    y0, agevec, scal, beff, obs, valid, M = args
+    ll, ck = fused_forward_ckpt(*args, **kw)
+    k3_args = (agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M)
+    out = dict(k1_ms=cuda_ms(lambda: fused_objective(*args, **kw), 10),
+               k1_regime=fused_objective.regime,
+               k2_ms=cuda_ms(lambda: fused_forward_ckpt(*args, **kw), 10),
+               k2_regime=fused_forward_ckpt.regime,
+               k3_ms=cuda_ms(lambda: fused_adjoint(*k3_args, **kw), 10),
+               k3_regime=fused_adjoint.regime,
+               bounds=kernel_bounds(1, "float64", args, kw, obs.shape[0], ck))
+    if plain:
+        out["k1_plain_ms"] = cuda_once(
+            lambda: fused_objective_reference(*args, **kw))[1]
+        out["k2_plain_ms"] = cuda_once(
+            lambda: fused_forward_ckpt_reference(*args, **kw))[1]
+        out["k3_plain_ms"] = cuda_once(
+            lambda: fused_adjoint_reference(*k3_args, **kw))[1]
+    return out
+
+
+def probe_anchors(got):
+    """Each probe's fixed-point rows against the committed results/ files:
+    ``[(label, value, anchor, bar or None for exact), ...]``."""
+    def load(name):
+        with open(os.path.join(HERE, "results", name)) as f:
+            return json.load(f)
+    rows = []
+    pr, p = load("sero_probe.json"), got["sero_profile_probe"]
+    for tag in ("committed MAP", "reference initial_guess"):
+        rows += [(f"profile {tag} LL", p[tag]["ll"], pr[tag]["ll"], 1e-10),
+                 (f"profile {tag} sero", p[tag]["sero_day64"],
+                  pr[tag]["sero_day64"], 1e-9)]
+    rr, r = load("sero_ridge.json"), got["sero_ridge_scan"]
+    for a, b in zip(r["ridge"], rr["ridge"]):
+        k = b["k"]
+        rows += [(f"ridge k={k} k", a["k"], k, None),
+                 (f"ridge k={k} LL", a["ll"], b["ll"], 1e-10),
+                 (f"ridge k={k} sero", a["sero_day64"], b["sero_day64"], 1e-9),
+                 (f"ridge k={k} clipped", a["clipped"], b["clipped"], None)]
+    if len(r["ridge"]) != len(rr["ridge"]):
+        fail(f"sero_ridge_scan: {len(r['ridge'])} ridge rows, the committed "
+             f"file {len(rr['ridge'])}")
+    sr, s = load("sero_sensitivity.json")["map"], got["sero_sensitivity"]["map"]
+    rows += [("sensitivity MAP LL", s["ll"], sr["ll"], 1e-10),
+             ("sensitivity MAP sero", s["sero_day64"], sr["sero_day64"], 1e-9),
+             ("sensitivity grad_seed_exposed", s["grad_seed_exposed"],
+              sr["grad_seed_exposed"], 1e-8),
+             ("sensitivity grad_runup_days", s["grad_runup_days"], 0.0, None)]
+    fr, fp = load("sero_force_profile.json"), got["sero_force_profile"]
+    for v in ("B", "C"):
+        a, b = fp[f"variant_{v}"]["path"][0], fr[f"variant_{v}"]["path"][0]
+        rows += [(f"force {v} path[0] LL", a["ll"], b["ll"], 1e-10),
+                 (f"force {v} path[0] sero", a["sero_day64"], b["sero_day64"],
+                  1e-9)]
+    return rows
+
+
+def probe_mains(card, tmp):
+    """The four probes' mains at full width, depth cut (``PROBE_MAINS``),
+    each counted from 0: K1 at B = 1 in the regime the rule picks, K2 at B =
+    1 with one K3 call each, K3 in regime 1. ``(JSON outputs, runs)``."""
+    from mmidv1_tpu_torch.cli import (sero_force_profile, sero_profile_probe,
+                                      sero_ridge_scan, sero_sensitivity)
+    mods = dict(sero_profile_probe=sero_profile_probe,
+                sero_ridge_scan=sero_ridge_scan,
+                sero_sensitivity=sero_sensitivity,
+                sero_force_profile=sero_force_profile)
+    got, runs = {}, {}
+    reg = forward_pick(1)
+    for name, argv in PROBE_MAINS.items():
+        path = os.path.join(tmp, f"{name}.json")
+        secs, counts = drive_main(mods[name], argv + ["--out", path], name)
+        with open(path) as f:
+            got[name] = json.load(f)
+        if counts["k1"] < 1 or counts["k1_batch_calls"] != {
+                1: {reg: counts["k1"]}}:
+            fail(f"{name}: K1 launches {counts['k1_batch_calls']}, expected "
+                 f"all at B = 1 in the {REGIMES[reg]} regime")
+        expect_gradients(name, counts, 1)
+        if counts["k3_regime_calls"] != {1: counts["k3"], 2: 0}:
+            fail(f"{name}: K3 by regime {counts['k3_regime_calls']}, "
+                 f"expected all in regime 1")
+        runs[name] = dict(seconds=secs, launches=counts)
+    return got, runs
+
+
+def probe_phase(card, tmp, host, plain):
+    """Phase 28: on each box the composed joint value_and_grad at the MAP,
+    card against host (rtol 1e-9, floored), K1 / K2 / K3 at B = 1 float64
+    timed and the sero term's seconds; then the four probes' mains, each
+    counted from 0, their fixed-point rows against the committed anchors."""
+    import numpy as np
+    from mmidv1_tpu_torch.cli import _sero_probe as sp
+    t_phase = time.perf_counter()
+    pl = sp.Pipeline(device="cuda")
+    theta_map = pl.theta_from_txt(sp.MAP_TXT)
+    boxes = {}
+    split = SeroSplit().__enter__()
+    try:
+        for variant in PROBE_BOXES:
+            box = pl.box(variant)
+            th = sp.nudge(theta_map, box.lo, box.hi)
+            v, g = box.joint_vg(PROBE_SE, PROBE_TARGET)(th)
+            boxes[variant] = dict(value=v, grad=g, **box_kernels(
+                box, th, plain and variant == "C"),
+                stream_ms=split.stream_ms[-1], sero_s=split.sero_ms[-1] / 1e3)
+        got, runs = probe_mains(card, tmp)
+    finally:
+        split.__exit__()
+    host.result()
+    h = np.load(os.path.join(tmp, "probe_host.npz"))
+    for variant, b in boxes.items():
+        hv, hg = float(h[f"{variant}_value"]), h[f"{variant}_grad"]
+        b["rel_value"] = abs(b["value"] - hv) / abs(hv)
+        b["rel_grad"] = rel_floor(b["grad"], hg)
+        k = b["bounds"]
+        print(f"[probes] box {variant}: composed value_and_grad card vs host "
+              f"value {b['rel_value']:.3e}, gradient {b['rel_grad']:.3e} (bar "
+              f"1e-9); B=1 float64: K1 {b['k1_ms']:.3f} ms (bound "
+              f"{k['k1']['bound_ms']:.5f}), K2 {b['k2_ms']:.3f} ms (bound "
+              f"{k['k2']['bound_ms']:.5f}), K3 {b['k3_ms']:.3f} ms in regime "
+              f"{b['k3_regime']} (bound {k['k3']['bound_ms']:.5f}); one "
+              f"composed call: K2 + K3 {b['stream_ms']:.1f} ms, the sero term "
+              f"{b['sero_s']:.2f} s on {card}",
+              flush=True)
+        if not (b["rel_value"] <= 1e-9 and b["rel_grad"] <= 1e-9):
+            fail(f"probes: the composed gradient on box {variant} differs "
+                 f"card vs host")
+        b["grad"] = None
+    anchors = []
+    for label, value, anchor, bar in probe_anchors(got):
+        if bar is None:
+            ok, err = value == anchor, None
+        else:
+            err = abs(value - anchor) / abs(anchor)
+            ok = err <= bar
+        anchors.append(dict(label=label, value=value, anchor=anchor,
+                            rel_err=err, bar=bar))
+        if not ok:
+            fail(f"probes: {label} {value!r} vs the committed {anchor!r}"
+                 + (f" (rel {err:.3e} > {bar:.0e})" if bar else ""))
+    worst = max((a["rel_err"] / a["bar"], a["label"]) for a in anchors
+                if a["bar"])
+    print(f"[probes] {len(anchors)} anchors of results/sero_*.json held "
+          f"(worst {worst[1]}: {worst[0]:.3g} of its bar); "
+          + ", ".join(f"{k} {v['seconds']:.1f} s (K1 {v['launches']['k1']}, "
+                      f"K2 / K3 {v['launches']['k2']})" for k, v in
+                      runs.items()) + f" on {card}", flush=True)
+    out = dict(boxes=boxes, runs=runs, anchors=anchors,
+               sero_calls=len(split.sero_ms),
+               sero_s_median=float(np.median(split.sero_ms)) / 1e3,
+               stream_ms_median=float(np.median(split.stream_ms)),
+               seconds=time.perf_counter() - t_phase)
+    print(f"[probes] {out['sero_calls']} composed value_and_grad calls: K2 + "
+          f"K3 {out['stream_ms_median']:.1f} ms, the sero term "
+          f"{out['sero_s_median']:.2f} s a call (medians) on {card}",
+          flush=True)
+    print(f"[probes] phase 28: {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+def probe_phases(card, tmp, host, cache, plain=False):
+    """Phases 26-28 in ``HostSide``'s directory ``tmp``."""
+    t0 = time.perf_counter()
+    out = dict(native=native_phase(card, tmp),
+               rematch=rematch_phase(card, tmp, cache),
+               probes=probe_phase(card, tmp, host, plain))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[probes] phases 26-28: {out['seconds']:.1f} s on {card}",
+          flush=True)
+    return out
+
+
+def probe_paths(probes):
+    """Every kernel's launches on phases 27-28, by path."""
+    paths = {f"mala_rematch B={REMATCH_B}": probes["rematch"]["launches"]}
+    paths.update({f"{k} B=1": v["launches"]
+                  for k, v in probes["probes"]["runs"].items()})
+    return paths
+
+
 def main():
     if "--host-refs" in sys.argv[1:]:
         sys.path.insert(0, HERE)
-        host_refs(sys.argv[sys.argv.index("--host-refs") + 1])
+        i = sys.argv.index("--host-refs")
+        host_refs(sys.argv[i + 1], sys.argv[i + 2])
         return 0
     k3_only = "--k3" in sys.argv[1:]
     main_only = "--main" in sys.argv[1:]
@@ -3256,6 +3764,7 @@ def main():
     sir_only = "--sir" in sys.argv[1:]
     parallel_only = "--parallel" in sys.argv[1:]
     nuts_only = "--nuts" in sys.argv[1:]
+    probes_only = "--probes" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -3360,7 +3869,8 @@ def main():
         return 0
 
     if nuts_only:
-        results["nuts"] = nuts_phases(card)
+        with HostSide("nuts") as (tmp, host):
+            results["nuts"] = nuts_phases(card, tmp, host)
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "chip_smoke_nuts.json"),
                   "w") as f:
@@ -3368,6 +3878,19 @@ def main():
         print("chip_smoke --nuts: the NUTS recipe, the polish, the curvature "
               "tools and the serovalid chain checked on the card; run without "
               "arguments for the whole check", flush=True)
+        return 0
+
+    if probes_only:
+        with HostSide("probes") as (tmp, host):
+            results["probes"] = probe_phases(card, tmp, host, cache,
+                                             plain=True)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_probes.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --probes: the native IO layer, the dynamics, "
+              "mala_rematch and the four seroprevalence probes checked on the "
+              "card; run without arguments for the whole check", flush=True)
         return 0
 
     # 2b. the forward kernels in both regimes
@@ -3516,16 +4039,41 @@ def main():
                        for k, c in par_paths.items() if c["k1"]})
     grad_paths = [(k, c) for k, c in par_paths.items() if c["k2"]]
 
-    # 23-25. the NUTS recipe, the polish, the curvature tools, serovalid
-    nuts = results["nuts"] = nuts_phases(card, alone=False)
-    for k, c in nuts_paths(nuts).items():
+    # 23-25. the NUTS recipe, the polish, the curvature tools, serovalid;
+    # 26-28. the native IO layer and the dynamics, mala_rematch, the probes
+    # (one child process computes the host's references of both)
+    with HostSide("all") as (tmp, host):
+        nuts = results["nuts"] = nuts_phases(card, tmp, host, alone=False)
+        probes = results["probes"] = probe_phases(card, tmp, host, cache)
+    new_paths = probe_paths(probes)
+    for k, c in list(nuts_paths(nuts).items()) + list(new_paths.items()):
         if c["k1"]:
             camp_paths[k] = {f: c[f] for f in ("k1", "k1_regime_calls",
                                                "k1_batch_calls")}
         if c["k2"]:
             grad_paths.append((k, c))
+    new_k2 = sum(c["k2"] for c in new_paths.values())
+    new_k3_kernels = sum(c["k3_kernels"] for c in new_paths.values())
+    # the kernels at the new paths' shapes: mala_rematch's 2048 float32
+    # chains (cash_karp@3) and the probes' one float64 chain on each box
+    rg = probes["rematch"]["grad"]
+    new_cfgs = {"k1": [probes["rematch"]["k1_compare"]],
+                "k2": [dict(rg["k2_check"], ms=rg["k2_ms"],
+                            plain_ms=rg["k2_plain_ms"], regime=rg["k2_regime"],
+                            **rg["k2_bound"])],
+                "k3": [dict(rg["k3_check"], ms=rg["k3_ms"],
+                            plain_ms=rg["k3_plain_ms"],
+                            plain_rows=rg["k3_plain_rows"],
+                            regime=rg["k3_regime"], **rg["k3_bound"])]}
+    for variant, b in probes["probes"]["boxes"].items():
+        for k in new_cfgs:
+            new_cfgs[k].append(dict(
+                case=f"float64 dopri5@4 B=1 REFLECT box {variant} (probes)",
+                ms=b[f"{k}_ms"], plain_ms=b.get(f"{k}_plain_ms"),
+                regime=b[f"{k}_regime"], bound_ms=b["bounds"][k]["bound_ms"],
+                bound_by=b["bounds"][k]["bound_by"]))
 
-    # 26. the kernels line, the card, the device line: each kernel's top-level
+    # 29. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
@@ -3589,11 +4137,11 @@ def main():
                                        "ms", "plain_ms", "bound_ms", "bound_by")}
                     for c in cases + main_run["primary"]["hillmcmc"][
                         "k1_compare"] + camp["k1_compare"]
-                    + [sir_run["pso"]["k1_compare"]]]}, {
+                    + [sir_run["pso"]["k1_compare"]]] + new_cfgs["k1"]}, {
         "name": "sepaihrd_fwd_ckpt", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_adjoint.cu",
         "replaces": "mmidv1_tpu/ops/sepaihrd_adjoint.py:359",
-        "launches": nuts_launches["k2"],
+        "launches": nuts_launches["k2"] + new_k2,
         "max_abs_err": main32["k2_check"]["max_abs_err"],
         "max_rel_err_ll": main32["k2_check"]["max_rel_err_ll"],
         "max_rel_err_ckpt": main32["k2_check"]["max_rel_err_ckpt"],
@@ -3615,19 +4163,19 @@ def main():
                                   ("mala B=64", mala),
                                   ("mala B=1024", mala_wide)] + grad_paths},
         "shape": "B=64 float32 dopri5@4 CLAMP",
-        "configs": [main64["k2_check"]] + k2_cases}, {
+        "configs": [main64["k2_check"]] + k2_cases + new_cfgs["k2"]}, {
         "name": "sepaihrd_adjoint", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_adjoint.cu",
         "replaces": "mmidv1_tpu/ops/sepaihrd_adjoint.py:397",
-        "launches": nuts_launches["k3"],
+        "launches": nuts_launches["k3"] + new_k2,
         "max_abs_err": main32["k3_check"]["max_abs_err"],
         "grad_err": main32["k3_check"]["err"],
         "ms": main32["k3_ms"], "plain_ms": main32["k3_plain_ms"],
         "bound_ms": main32["k3_bound"]["bound_ms"],
         "bound_by": main32["k3_bound"]["bound_by"], "library_ms": None,
         "regime": k3_regime,
-        "calls": nuts_launches["k3"],
-        "kernel_launches": nuts_launches["k3_kernels"],
+        "calls": nuts_launches["k3"] + new_k2,
+        "kernel_launches": nuts_launches["k3_kernels"] + new_k3_kernels,
         "kernels_per_call": nuts_launches["k3_kernels"] // nuts_launches["k3"],
         "design_bound_ms": main32["k3_bound"]["design_bound_ms"][k3_regime],
         "shape": "B=64 float32 dopri5@4 CLAMP",
@@ -3639,7 +4187,7 @@ def main():
                                   ("mala B=1024", mala_wide)] + grad_paths},
         "by_regime": {f"B={t['B']} {t['dtype']}": t["k3_forced"]
                       for t in timings},
-        "configs": [main64["k3_check"]] + k3_cases}]
+        "configs": [main64["k3_check"]] + k3_cases + new_cfgs["k3"]}]
     results["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -21,6 +21,7 @@ shared pieces of that "serovalid" mode:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -63,9 +64,11 @@ def relax_bounds(space, *, seed_cap: float = SEED_CAP,
 
 def make_sero_penalty(space, base_params, data, ts, *, substeps: int = 4,
                       tableau: str = "dopri5", se: float = SERO_SURVEY_SE,
-                      constraint_mode=None, dtype=None, device=None):
+                      mean: Optional[float] = None, constraint_mode=None,
+                      dtype=None, device=None):
     """ENE-COVID Gaussian data term: ``penalty(thetas (..., d)) -> (...)``,
-    ``-(sero(theta)-mean)^2 / (2 se^2)``.
+    ``-(sero(theta)-mean)^2 / (2 se^2)``; ``mean`` defaults to the survey's
+    ``analysis.aggregate.ENE_COVID_MEAN`` (0.048).
 
     ``sero(theta)`` (``penalty.sero_of``) is the population fraction ever
     infected at the ENE-COVID round-1 reference day
@@ -84,6 +87,8 @@ def make_sero_penalty(space, base_params, data, ts, *, substeps: int = 4,
 
     if constraint_mode is None:
         constraint_mode = REFLECT
+    if mean is None:
+        mean = ENE_COVID_MEAN
     dtype = dtype or base_params.dtype
     dev = resolve_device(device or base_params.device)
     base = base_params.to(dev, dtype)
@@ -106,7 +111,7 @@ def make_sero_penalty(space, base_params, data, ts, *, substeps: int = 4,
         return (total_pop - torch.sum(traj[t_idx, ..., 0, :], dim=-1)) / total_pop
 
     def penalty(thetas):
-        return -0.5 * ((sero_of(thetas) - ENE_COVID_MEAN) / se) ** 2
+        return -0.5 * ((sero_of(thetas) - mean) / se) ** 2
 
     def value_and_grad(thetas):
         with torch.enable_grad():

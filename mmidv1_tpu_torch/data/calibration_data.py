@@ -6,7 +6,9 @@ container of NumPy matrices (reference ``include/utils/GetCalibrationData.hpp:30
 
 - :meth:`CalibrationData.from_csv`  <- the file constructor (:15-21, :236-401):
   date-range filtering (inclusive string comparison), the hard-coded 4-age-band
-  column names, population from the first row. Pure-Python parse only.
+  column names, population from the first row. The numbers are parsed in
+  bulk by the native C++ IO layer (``utils/native.py``) when it is available,
+  by Python otherwise, with the same results.
 - :meth:`CalibrationData.from_arrays` <- the in-memory constructor used as the
   test fixture / fake data backend (:24-89): reconstructs cumulative matrices from
   daily incidence + an initial cumulative row.
@@ -23,7 +25,8 @@ from typing import List
 
 import numpy as np
 
-from ..utils.exceptions import DataFormatException, FileIOException
+from ..utils.exceptions import (DataFormatException, FileIOException,
+                                ModelException)
 
 AGE_BANDS = ("0_30", "30_60", "60_80", "80_plus")
 
@@ -108,8 +111,33 @@ class CalibrationData:
             raise DataFormatException("CalibrationData.from_csv",
                                       "No data points found in specified date range.")
 
+        # bulk numeric parse through the native C++ IO layer when available
+        # (utils/native.py), the pure-Python parse otherwise
+        from ..utils import native
+
+        all_cols = sorted({c for cols in groups.values() for c in cols})
+        try:
+            table = native.read_csv_table(path, all_cols, skip_header=1)
+        except ModelException:
+            # the native parse reads EVERY row of the file: an error in a row
+            # outside the date range must not fail the load (the Python parse
+            # below reads only the selected rows)
+            table = None
+        if table is not None and table.shape[0] == len(rows):
+            table = table[np.array([in_range(r[date_idx]) for r in rows])]
+            if np.isnan(table).any():
+                # the native parser is lenient (a malformed or empty cell is
+                # NaN); a selected row must parse strictly, so the Python
+                # parse decides (and raises DataFormatException)
+                table = None
+        else:
+            table = None
+
         def mat(key: str) -> np.ndarray:
             cols = groups[key]
+            if table is not None:
+                return np.ascontiguousarray(
+                    table[:, [all_cols.index(c) for c in cols]])
             try:
                 return np.array([[float(r[c]) for c in cols]
                                  for r in selected])

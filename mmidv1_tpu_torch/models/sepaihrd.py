@@ -60,6 +60,20 @@ def inv_population(params: SEPAIHRDParams) -> torch.Tensor:
                        torch.zeros_like(N))
 
 
+def force_of_infection(params: SEPAIHRDParams, y: torch.Tensor,
+                       t) -> torch.Tensor:
+    """lambda_i(t) >= 0, shape ``(..., n_ages)`` (reference
+    ``AgeSEPAIHRDModel::computeDerivatives`` lines 152-196): the ``lam`` of
+    :class:`FrozenRHS` with the schedule factor evaluated at ``t``."""
+    t = torch.as_tensor(t, dtype=params.dtype, device=params.device)
+    P_, A_, I_ = y[..., C.P, :], y[..., C.A, :], y[..., C.I, :]
+    inf_pressure = (P_ + A_ + _col(params.theta) * I_) * params.h_infec \
+        * inv_population(params)
+    lam = _contact_matvec(params.contact_matrix(), inf_pressure)
+    beta_eff = beta_at(params, t) * kappa_at(params, t)
+    return max0(_col(beta_eff) * params.a * lam)
+
+
 def rhs(t, y: torch.Tensor, params: SEPAIHRDParams) -> torch.Tensor:
     """Time derivative with the schedule factor evaluated at ``t`` (a
     scalar tensor). Exactly :func:`rhs_frozen` with beta(t)*kappa(t)."""
@@ -177,6 +191,14 @@ def solve(params: SEPAIHRDParams, y0: torch.Tensor, ts, *, method="fixed",
                                method=tableau, interval_ctx=ctx, stats=stats)
     return integrate_times_fixed(f, y0, ts, substeps=substeps, method=tableau,
                                  interval_ctx=ctx)
+
+
+def state_names(n_ages: int) -> list:
+    """Flat state names matching ``AgeSEPAIHRDModel::getStateNames``
+    (reference ``src/model/AgeSEPAIHRDModel.cpp:251-259``): S0..S3, E0..E3,
+    ..., CumICU0..CumICU3."""
+    from .results import state_names as _flat_names
+    return _flat_names(C.COMPARTMENTS, n_ages)
 
 
 def infer_initial_state(

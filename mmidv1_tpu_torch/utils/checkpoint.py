@@ -139,9 +139,15 @@ def write_posterior_trace(path: str, samples, logps=None,
     else:
         data, cols = samples, col_names
 
+    # the native C++ writer when available, the same bytes either way
+    from . import native
+
+    tmp = f"{path}.tmp.{os.getpid()}"
+    if native.write_trace_csv(tmp, ",".join(cols), data):
+        os.replace(tmp, path)
+        return
     # "%.8e" of a Python float is the ".8e" format of the value itself
     row = "%d" + ",%.8e" * data.shape[1] + "\n"
-    tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         f.write("sample," + ",".join(cols) + "\n")
         for i, vals in enumerate(data.tolist()):
