@@ -10,6 +10,7 @@
     python3 chip_smoke.py --parallel  # build, then phase 22 only (no ok line)
     python3 chip_smoke.py --nuts   # build, then phases 23-25 only (no ok line)
     python3 chip_smoke.py --probes # build, then phases 26-28 only (no ok line)
+    python3 chip_smoke.py --recovery  # build, then phase 29 only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -261,7 +262,26 @@ Phases (any failure exits non-zero before the final line):
      rows against ``results/sero_*.json``: LL rtol 1e-10, sero 1e-9,
      ``grad_seed_exposed`` 1e-8, ``grad_runup_days`` exactly 0, the ridge's
      clipped names equal;
- 29. print the kernels line and, last, the device line.
+ 29. the JAX package's whole-run recovery tests on the real model, with
+     their settings and bars (``tests/torch_recovery.py``), float64,
+     dopri5@2: R1 (``tests/test_sepaihrd_recovery.py``), synthetic Poisson
+     data over 60 days made on the host, then ``calibrate(psomcmc)`` (PSO
+     128 x 40, AM-MH 32 chains x 400) through K1, counted from 0: every call
+     at 128 or 32 chains in the regime the rule picks, 401 at 32; the truth
+     back within rtol 0.10 / 0.30 / 0.40, best >= logL(truth) - 5, the
+     posterior median of beta_1 within 0.15; phase 1 / 2 seconds and AM-MH
+     chain-steps/s. R3 (``tests/test_gradients.py``), 30 days, 5
+     parameters, ``run_nuts`` (25 iterations of depth 3, 4 chains) through
+     K2 + K3, counted from 0: one K2 and one K3 call a value_and_grad, K3 in
+     regime 1; finite, moving, in bounds, best >= logL(theta0) - 5;
+     grad-evals/s. Then each run's kernels at its shape, on its last
+     samples: K1 at 32 chains, K2 and K3 at 4, held against their plain
+     versions (rtol 1e-10, 1e-10, 1e-9) and timed beside their bounds.
+     Not here: the age-SIR recovery (R2, an eager solve that
+     is launch-bound on the card, 3-4x slower than the host) and the golden
+     triangulation of the committed calibration (R4, SciPy on the host; no
+     card work); both run in the host tests;
+ 30. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -328,8 +348,7 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
     from mmidv1_tpu_torch.cli.common import load_spain_pipeline
     from mmidv1_tpu_torch.ops import build_objective_fused
     from mmidv1_tpu_torch.ops.sepaihrd_fused import (fused_objective,
-                                                     fused_objective_reference,
-                                                     op_count)
+                                                     fused_objective_reference)
 
     dtype = getattr(torch, dtype_name)
     if dtype_name not in pipe_cache:
@@ -376,18 +395,12 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
 
     ms = cuda_ms(lambda: fused_objective(*args, **kw), reps=10)
     objective_ms = cuda_ms(lambda: ll(thetas), reps=10)
-    elem = torch.finfo(dtype).bits // 8
-    nbytes = sum(a.numel() for a in args[:6]) * elem + B * elem
-    n_intervals = int(sum(kw["run_count"]))
-    flops = B * op_count(tableau, substeps, n_intervals, pipe.data.n_data_points)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
     out = dict(case=case, B=B, dtype=dtype_name, tableau=tableau,
                substeps=substeps, regime=regime, tol_rel=tol,
                max_rel_err=max_rel,
                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-               objective_ms=objective_ms, bytes=nbytes, flops=flops,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes > t_ops else "operations")
+               objective_ms=objective_ms,
+               **k1_bound(B, dtype_name, args, kw, pipe.data.n_data_points))
     print(f"[compare] {case} ({REGIMES[regime]} regime): max rel err "
           f"{max_rel:.3e} (tol {tol:.0e}), "
           f"max abs err {max_abs:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
@@ -869,6 +882,14 @@ def sm_clock_mhz(busy, launches=400):
     return now, top
 
 
+def chain_bound_ms(tableau, substeps, n_intervals, elem, clock_mhz):
+    """The forward's chain bound: dependent RK stages x the cycles a stage
+    of the recurrence's longest dependency cycle / the SM clock."""
+    from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+    return (sf.dependent_stages(tableau, substeps, n_intervals)
+            * sf.chain_cycles(elem) / (clock_mhz * 1e3))
+
+
 def forward_bounds(B, dtype_name, kw, n_obs, args, n_ckpt, clock_mhz):
     """K1's (``n_ckpt`` 0) or K2's two bounds in ms: the roofline (bytes
     over the memory rate against ``op_count`` over the non-tensor peak) and
@@ -881,7 +902,8 @@ def forward_bounds(B, dtype_name, kw, n_obs, args, n_ckpt, clock_mhz):
     flops = B * sf.op_count(kw["tableau"], kw["substeps"], n_intervals, n_obs)
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
     stages = sf.dependent_stages(kw["tableau"], kw["substeps"], n_intervals)
-    chain = stages * sf.chain_cycles(elem) / (clock_mhz * 1e3)
+    chain = chain_bound_ms(kw["tableau"], kw["substeps"], n_intervals, elem,
+                           clock_mhz)
     return dict(bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
                 bound_by="bytes" if t_b > t_o else "operations",
                 dependent_stages=stages, chain_cycles=sf.chain_cycles(elem),
@@ -3435,19 +3457,26 @@ def native_phase(card, tmp):
     return out
 
 
-def kernel_bounds(B, dtype_name, args, kw, n_obs, ck):
-    """K1's bound (as in ``compare``) and K2's / K3's (``adjoint_bounds``)
-    for the kernel inputs ``args`` of ``B`` chains."""
+def k1_bound(B, dtype_name, args, kw, n_obs):
+    """K1's roofline for the kernel inputs ``args`` of ``B`` chains: every
+    input read once and the (B,) log-likelihoods written once, against
+    ``op_count`` at the non-tensor peak."""
     from mmidv1_tpu_torch.ops.sepaihrd_fused import op_count
     elem = 8 if dtype_name == "float64" else 4
     nbytes = sum(a.numel() for a in args[:6]) * elem + B * elem
     flops = B * op_count(kw["tableau"], kw["substeps"], int(sum(kw["run_count"])),
                          n_obs)
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype_name] * 1e3
-    k1 = dict(bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
-              bound_by="bytes" if t_b > t_o else "operations")
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b > t_o else "operations")
+
+
+def kernel_bounds(B, dtype_name, args, kw, n_obs, ck):
+    """K1's bound (``k1_bound``) and K2's / K3's (``adjoint_bounds``) for
+    the kernel inputs ``args`` of ``B`` chains."""
     adj = adjoint_bounds(B, dtype_name, kw, n_obs, args, ck)
-    return dict(k1=k1, k2=adj["fwd"], k3=adj["bwd"])
+    return dict(k1=k1_bound(B, dtype_name, args, kw, n_obs), k2=adj["fwd"],
+                k3=adj["bwd"])
 
 
 def rematch_grad_case(cache):
@@ -3751,6 +3780,221 @@ def probe_paths(probes):
     return paths
 
 
+# ------------------------------------------------------------------ phase 29
+# The whole-run recovery tests on the real model through the kernels: R1
+# (tests/test_sepaihrd_recovery.py, psomcmc) through K1 and R3
+# (tests/test_gradients.py, NUTS) through K2 + K3, float64, with the JAX
+# tests' settings and bars (tests/torch_recovery.py). The same runs on the
+# host (tests/test_torch_sepaihrd_recovery.py, tests/test_torch_gradients.py,
+# torch's CPU generator) gave these values; the card's generator draws other
+# numbers, so they are printed beside the card's, not compared.
+HOST_R1 = dict(best=[0.549920, 0.300878, 79.8490], median_beta_1=0.550508)
+HOST_R3 = dict(best_logp=-266.808)
+
+
+def recovery_kernels(case, engine, thetas, grad):
+    """The kernels of one recovery run at its shape, float64 dopri5@2, on
+    the inputs of ``thetas``: K1 (or K2 and K3 with ``grad``) held against
+    the plain version (phases 3, 6, 7's bars) and timed (CUDA events, 10
+    launches; the plain version one run) beside the roofline and the
+    forward's chain bound (dependent stages x cycles a stage / the SM clock
+    read under load here)."""
+    import numpy as np
+    import torch
+    import torch_recovery as rec
+    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_adjoint_reference,
+                                      fused_forward_ckpt,
+                                      fused_forward_ckpt_reference,
+                                      fused_objective)
+    from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+    B = thetas.shape[0]
+    args, kw, _inf = engine.prep.kernel_args(thetas)
+    kw = dict(kw, substeps=rec.SUBSTEPS, tableau="dopri5")
+    n_obs = args[4].shape[0]
+    clock, _top = sm_clock_mhz(lambda: fused_objective(*args, **kw))
+    chain = chain_bound_ms("dopri5", rec.SUBSTEPS, int(sum(kw["run_count"])),
+                           8, clock)
+    if not grad:
+        got = fused_objective(*args, **kw).double().cpu().numpy()
+        regime = fused_objective.regime
+        ref, plain_ms = cuda_once(
+            lambda: sf.fused_objective_reference(*args, **kw))
+        ref = ref.double().cpu().numpy()
+        abs_err = np.abs(got - ref)
+        rel = float((abs_err / np.abs(ref)).max())
+        if not (np.isfinite(got).all() and rel <= FWD_TOL["float64"]):
+            fail(f"K1 {case}: max rel err {rel:.3e} vs plain (bar "
+                 f"{FWD_TOL['float64']:.0e})")
+        print(f"[K1] {case}: max rel err {rel:.3e} (tol "
+              f"{FWD_TOL['float64']:.0e})", flush=True)
+        bound = k1_bound(B, "float64", args, kw, n_obs)
+        out = {"k1": dict(case=case, regime=regime, max_rel_err=rel,
+                          max_abs_err=float(abs_err.max()),
+                          ms=cuda_ms(lambda: fused_objective(*args, **kw), 10),
+                          plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                          bound_by=bound["bound_by"], chain_bound_ms=chain,
+                          sm_clock_mhz=clock)}
+    else:
+        ll, ck = fused_forward_ckpt(*args, **kw)
+        k2_regime = fused_forward_ckpt.regime
+        ref2, k2_plain_ms = cuda_once(
+            lambda: fused_forward_ckpt_reference(*args, **kw))
+        k2_check = check_k2(case, (ll, ck), ref2, FWD_TOL["float64"])
+        _y0, agevec, scal, beff, obs, valid, M = args
+        k3_args = (agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M)
+        grads = fused_adjoint(*k3_args, **kw)
+        k3_regime = fused_adjoint.regime
+        ref3, k3_plain_ms = cuda_once(
+            lambda: fused_adjoint_reference(*k3_args, **kw))
+        k3_check = check_k3(case, grads, ref3, "float64", 1e-9)
+        bounds = kernel_bounds(B, "float64", args, kw, n_obs, ck)
+        out = {"k2": dict(k2_check, regime=k2_regime, plain_ms=k2_plain_ms,
+                          ms=cuda_ms(lambda: fused_forward_ckpt(*args, **kw),
+                                     10),
+                          bound_ms=bounds["k2"]["bound_ms"],
+                          bound_by=bounds["k2"]["bound_by"],
+                          chain_bound_ms=chain, sm_clock_mhz=clock),
+               "k3": dict(k3_check, regime=k3_regime, plain_ms=k3_plain_ms,
+                          ms=cuda_ms(lambda: fused_adjoint(*k3_args, **kw),
+                                     10),
+                          bound_ms=bounds["k3"]["bound_ms"],
+                          bound_by=bounds["k3"]["bound_by"])}
+    for k, c in out.items():
+        print(f"[recovery] {k.upper()} {case}: {c['ms']:.3f} ms (regime "
+              f"{c['regime']}), plain {c['plain_ms']:.1f} ms, bound "
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']})"
+              + (f", chain {c['chain_bound_ms']:.4f} ms at {clock:.0f} MHz"
+                 if "chain_bound_ms" in c else ""), flush=True)
+    return out
+
+
+def recovery_phase(card):
+    """Phase 29: R1 through K1 and R3 through K2 + K3 on the card."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_recovery as rec
+    from mmidv1_tpu_torch.calibration import CLAMP, REFLECT
+    from mmidv1_tpu_torch.ops import (build_objective_fused,
+                                      build_objective_fused_grad,
+                                      fused_adjoint, fused_forward_ckpt,
+                                      fused_objective)
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+
+    # R1: psomcmc through K1, float64 dopri5@2; the data made on the host
+    p = rec.r1_problem(device="cuda", dtype=f64)
+    ll_c, ll_r = (build_objective_fused(p["space"], p["params"], p["data"],
+                                        p["ts"], substeps=rec.SUBSTEPS,
+                                        tableau="dopri5", constraint_mode=m,
+                                        dtype=f64, device="cuda")
+                  for m in (CLAMP, REFLECT))
+    S, B = rec.R1_PSO.swarm_size, rec.R1_CHAINS
+    zero_counts()
+    res = rec.r1_calibrate(ll_c, ll_r, p, torch.Generator(
+        device="cuda").manual_seed(rec.R1_CALIBRATION_SEED))
+    best = res.best_theta.cpu().numpy()
+    best_logl = float(res.best_logl)
+    r1_counts = dict(k1=fused_objective.launches,
+                     k1_regime_calls=dict(fused_objective.regime_calls),
+                     k1_batch_calls={b: dict(v) for b, v in
+                                     fused_objective.batch_calls.items()})
+    ll_true = float(ll_c(p["theta_true"][None])[0])
+    samples = res.samples.cpu().numpy()
+    median = float(np.median(samples[-100:].reshape(-1, 3)[:, 0]))
+    steps_per_s = B * rec.R1_MH.iterations / res.phase2_seconds
+    by_batch = r1_counts["k1_batch_calls"]
+    # PSO: the opposition start (2 calls) + one a step, + one a restart;
+    # AM-MH: the start + one a step
+    mh_calls = 1 + rec.R1_MH.iterations
+    min_pso = 2 + rec.R1_PSO.iterations
+    pso_calls = sum(by_batch.get(S, {}).values())
+    ok_regimes = set(by_batch) == {S, B} and all(
+        set(by_batch[b]) == {forward_pick(b)} for b in by_batch)
+    print(f"[recovery] R1 psomcmc through K1 (float64 dopri5@{rec.SUBSTEPS}, "
+          f"{rec.R1_DAYS} days): best (beta_1, theta, seed_exposed) = "
+          f"{best.tolist()} (host test: {HOST_R1['best']}; truth "
+          f"{list(rec.R1_TRUE.values())}), best logL {best_logl!r} vs "
+          f"logL(truth) {ll_true!r}, posterior median beta_1 {median:.4f} "
+          f"(host: {HOST_R1['median_beta_1']}); phase 1 "
+          f"{res.phase1_seconds:.2f} s, phase 2 {res.phase2_seconds:.2f} s, "
+          f"AM-MH {steps_per_s:.4e} chain-steps/s; K1 by chain count and "
+          f"regime {by_batch} on {card}", flush=True)
+    if not ok_regimes or sum(by_batch[B].values()) != mh_calls or \
+            pso_calls < min_pso:
+        fail(f"R1: K1 ran {by_batch}, expected {mh_calls} calls at {B} and "
+             f">= {min_pso} at {S}, each in the regime the "
+             f"rule picks ({REGIMES[forward_pick(S)]} / "
+             f"{REGIMES[forward_pick(B)]})")
+    missed = rec.r1_missed(best, best_logl, ll_true, samples)
+    if missed:
+        fail(f"R1 on the card missed its bars: {missed}")
+    r1 = dict(best=best.tolist(), best_logl=best_logl, ll_true=ll_true,
+              median_beta_1=median, phase1_seconds=res.phase1_seconds,
+              phase2_seconds=res.phase2_seconds,
+              chain_steps_per_s=steps_per_s, launches=r1_counts,
+              host=HOST_R1,
+              kernels=recovery_kernels(
+                  f"float64 dopri5@{rec.SUBSTEPS} B={B} REFLECT (R1 AM-MH, "
+                  f"{rec.R1_DAYS} days)", ll_r, res.samples[-1], grad=False))
+
+    # R3: NUTS through K2 + K3, float64 dopri5@2, CLAMP
+    q = rec.r3_problem(device="cuda", dtype=f64)
+    vg = build_objective_fused_grad(q["space"], q["params"], q["data"],
+                                    q["ts"], substeps=rec.SUBSTEPS,
+                                    tableau="dopri5", constraint_mode=CLAMP,
+                                    dtype=f64, device="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    nres = rec.r3_nuts(None, q, value_and_grad_batch=vg)
+    best_logp = float(nres.best_logp)
+    seconds = time.perf_counter() - t0
+    r3_counts = dict(k1=fused_objective.launches,
+                     k2=fused_forward_ckpt.launches,
+                     k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
+                     k2_batch_calls={b: dict(v) for b, v in
+                                     fused_forward_ckpt.batch_calls.items()},
+                     k3=fused_adjoint.launches,
+                     k3_kernels=fused_adjoint.kernel_launches,
+                     k3_regime_calls=dict(fused_adjoint.regime_calls))
+    calls = vg.calls
+    ll0 = float(vg.value_batch(q["theta0"][None])[0])
+    nb, cfg = rec.R3_CHAINS, rec.R3_NUTS
+    rate = nb * calls / seconds
+    print(f"[recovery] R3 NUTS through K2 + K3 (float64 dopri5@{rec.SUBSTEPS}, "
+          f"{rec.R3_DAYS} days, {nb} chains, {cfg.iterations} iterations of "
+          f"depth {cfg.max_tree_depth}): best logp {best_logp!r} vs "
+          f"logL(theta0) {ll0!r} (host test: {HOST_R3['best_logp']}); "
+          f"{calls} value_and_grad calls in {seconds:.2f} s, {rate:.4e} "
+          f"grad-evals/s; K2 {r3_counts['k2_batch_calls']}, K3 "
+          f"{r3_counts['k3']} calls by regime {r3_counts['k3_regime_calls']}, "
+          f"{r3_counts['k3_kernels']} kernels on {card}", flush=True)
+    split = forward_pick(nb)
+    if r3_counts["k1"] or calls < 1 or r3_counts["k2"] != calls or \
+            r3_counts["k3"] != calls or \
+            r3_counts["k2_batch_calls"] != {nb: {split: calls}} or \
+            r3_counts["k3_regime_calls"] != {1: calls, 2: 0}:
+        fail(f"R3: {calls} value_and_grad calls launched {r3_counts}; "
+             f"expected K2 and K3 once each a call at {nb} chains, K2 "
+             f"{REGIMES[split]}, K3 in regime 1, K1 never")
+    missed = rec.r3_missed(best_logp, nres.samples.cpu().numpy(),
+                           q["space"].lower.cpu().numpy(),
+                           q["space"].upper.cpu().numpy(), ll0)
+    if missed:
+        fail(f"R3 on the card missed its bars: {missed}")
+    r3 = dict(best_logp=best_logp, ll_theta0=ll0, calls=calls,
+              seconds=seconds, grad_evals_per_s=rate, launches=r3_counts,
+              host=HOST_R3,
+              kernels=recovery_kernels(
+                  f"float64 dopri5@{rec.SUBSTEPS} B={nb} CLAMP (R3 NUTS, "
+                  f"{rec.R3_DAYS} days)", vg.value_batch, nres.samples[-1],
+                  grad=True))
+    out = dict(r1=r1, r3=r3, seconds=time.perf_counter() - t_phase)
+    print(f"[recovery] phase 29: {out['seconds']:.1f} s on {card}",
+          flush=True)
+    return out
+
+
 def main():
     if "--host-refs" in sys.argv[1:]:
         sys.path.insert(0, HERE)
@@ -3765,6 +4009,7 @@ def main():
     parallel_only = "--parallel" in sys.argv[1:]
     nuts_only = "--nuts" in sys.argv[1:]
     probes_only = "--probes" in sys.argv[1:]
+    recovery_only = "--recovery" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -3891,6 +4136,17 @@ def main():
         print("chip_smoke --probes: the native IO layer, the dynamics, "
               "mala_rematch and the four seroprevalence probes checked on the "
               "card; run without arguments for the whole check", flush=True)
+        return 0
+
+    if recovery_only:
+        results["recovery"] = recovery_phase(card)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out",
+                               "chip_smoke_recovery.json"), "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print("chip_smoke --recovery: the psomcmc and NUTS recovery runs on "
+              "the real model met their bars through the kernels; run "
+              "without arguments for the whole check", flush=True)
         return 0
 
     # 2b. the forward kernels in both regimes
@@ -4072,8 +4328,30 @@ def main():
                 ms=b[f"{k}_ms"], plain_ms=b.get(f"{k}_plain_ms"),
                 regime=b[f"{k}_regime"], bound_ms=b["bounds"][k]["bound_ms"],
                 bound_by=b["bounds"][k]["bound_by"]))
+    # the forward kernels' chain bound at those shapes, as phase 2b's
+    # (dependent stages x cycles a stage / the SM clock read under load)
+    n_intervals = len(cache["float32"].ts) - 1
+    for k in ("k1", "k2"):
+        for c, (tab, sub, elem) in zip(new_cfgs[k], [("cash_karp", 3, 4)]
+                                       + [("dopri5", 4, 8)] * 3):
+            c["chain_bound_ms"] = chain_bound_ms(tab, sub, n_intervals, elem,
+                                                 fwd["clock_mhz"])
+            print(f"[chain] {k.upper()} {c['case']}: {c['ms']:.3f} ms, chain "
+                  f"bound {c['chain_bound_ms']:.4f} ms at {fwd['clock_mhz']:.0f}"
+                  f" MHz", flush=True)
 
-    # 29. the kernels line, the card, the device line: each kernel's top-level
+    # 29. the recovery runs: R1 through K1, R3 through K2 + K3
+    rec_run = results["recovery"] = recovery_phase(card)
+    camp_paths["recovery R1 psomcmc B=128/32 f64"] = rec_run["r1"]["launches"]
+    r3_counts = rec_run["r3"]["launches"]
+    grad_paths.append(("recovery R3 nuts B=4 f64", r3_counts))
+    new_k2 += r3_counts["k2"]
+    new_k3_kernels += r3_counts["k3_kernels"]
+    for k, c in list(rec_run["r1"]["kernels"].items()) + list(
+            rec_run["r3"]["kernels"].items()):
+        new_cfgs[k].append(c)
+
+    # 30. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64

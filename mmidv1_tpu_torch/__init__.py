@@ -16,3 +16,5 @@ from .params import (SEPAIHRDParams, beta_at, kappa_at, make_params,
 
 __all__ = ["constants", "SEPAIHRDParams", "make_params", "params_from_numpy",
            "beta_at", "kappa_at", "piecewise_value"]
+
+__version__ = "0.1.0"

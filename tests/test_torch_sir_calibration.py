@@ -164,3 +164,38 @@ def test_hillmcmc_run_beats_its_start(sir_setup):
     assert bool(space.in_bounds(res.samples).all())
     np.testing.assert_allclose(float(ll_c(res.best_theta[None])[0]),
                                float(res.best_logl), rtol=1e-12)
+
+
+@pytest.mark.slow
+def test_sir_calibration_demo_recovers_truth(sir_setup):
+    """``tests/test_sir_calibration.py:76-100`` on the port: hill (120
+    iterations) + AM-MH (400 x 16 chains) from a wrong start recovers the
+    identified q * scale_C and both gammas on the JAX test's synthetic data
+    (this file's fixture without its deliberately negative observation).
+    The port draws from torch's Philox where the JAX test draws from
+    threefry: same settings and bars, other random numbers."""
+    _jtrue, ttrue, y0, ts, observed_neg = sir_setup
+    lam_S = tsir.sir_incidence(ttrue, tsir.solve_age_sir(
+        ttrue, T(y0), T(ts), substeps=2)).numpy()
+    observed = np.random.default_rng(5).poisson(np.maximum(lam_S, 0.0)) \
+        .astype(float)
+    differ = observed != observed_neg
+    assert differ.sum() == 1 and differ[3, 1]
+    _jspace, space = _spaces(sir_setup)
+    ll_c, ll_r = (build_sir_objective(space, ttrue, observed, ts, y0,
+                                      substeps=2, constraint_mode=m)
+                  for m in (CLAMP, REFLECT))
+    res = tcal.calibrate(ll_c, ll_r, space, T([0.05, 1.5, 0.1, 0.1]),
+                         generator=torch.Generator().manual_seed(2),
+                         algorithm="hillmcmc",
+                         phase1_config=HillClimbConfig(iterations=120),
+                         mh_config=MHConfig(iterations=400, burn_in=100,
+                                            adaptation_period=50, thinning=2),
+                         n_chains=16)
+    best = res.best_theta.numpy()
+    np.testing.assert_allclose(best[0] * best[1], 0.08 * 1.0, rtol=0.1)
+    np.testing.assert_allclose(best[2], 0.12, rtol=0.25)
+    np.testing.assert_allclose(best[3], 0.2, rtol=0.25)
+    ll_best = float(ll_c(T(best)[None])[0])
+    ll_true = float(ll_c(space.extract(ttrue)[None])[0])
+    assert ll_best > ll_true - 10.0   # fits at least ~as well as the truth
