@@ -11,6 +11,8 @@
     python3 chip_smoke.py --nuts   # build, then phases 23-25 only (no ok line)
     python3 chip_smoke.py --probes # build, then phases 26-28 only (no ok line)
     python3 chip_smoke.py --recovery  # build, then phase 29 only (no ok line)
+    python3 chip_smoke.py --tableaus  # build, then phase 30 only (no ok line;
+                                      # exits 1 on a miss, after the timings)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
@@ -47,7 +49,9 @@ Phases (any failure exits non-zero before the final line):
   6. hold K2 (forward with checkpoints) against its plain version: LL and
      checkpoints at B = 8192, f64 rtol 1e-10 and f32 rtol 5e-6;
   7. hold K3 (the adjoint) against its plain version (autograd through the
-     plain forward, whose saved tensors limit it to B = 512): all four
+     plain forward, whose saved tensors limit it to B = 512; float64
+     dopri5@4 and float32 cash_karp@3, the other two pairs until phase 30
+     needed the time): all four
      gradient outputs, f64 rtol 1e-9 with an absolute floor of 1e-9 x the
      chain's largest entry, f32 per-chain relative 2-norm <= 1e-3; NaN
      chains come out NaN from both and finfo.min from value_and_grad. K3
@@ -205,7 +209,8 @@ Phases (any failure exits non-zero before the final line):
      third partial file written without its state) and resumed: every
      partial file, the state, samples.npz and the trace to the bit;
      ``--stages 2`` with ``laplace-dense`` at depth 3; ``--serovalid`` on
-     the serovalid Laplace trace, depth 2, 2 iterations, each of its
+     the serovalid Laplace trace, depth 1 (2 until phase 30 needed the
+     time), 2 iterations, each of its
      value_and_grad calls with K2 + K3 and the sero term timed apart, and
      the composed float64 value_and_grad at 4 chains card vs host (rtol
      1e-9, floored). Every campaign is counted from 0: every K2 call at 64
@@ -256,8 +261,9 @@ Phases (any failure exits non-zero before the final line):
      (the ``--host-refs`` child; rtol 1e-9, floored), K1 / K2 / K3 at B = 1
      timed beside their bounds (under ``--probes`` also their plain
      versions, on box C), K2 + K3's ms and the sero term's seconds a call;
-     then each probe's ``main`` with depth cut to ``--maxiter 2 --rounds
-     1`` (the ridge's 7-point k grid, one ladder rung a variant), counted
+     then each probe's ``main`` with depth cut to ``--maxiter 1 --rounds
+     1`` (2 until phase 30 needed the time; the ridge's 7-point k grid,
+     one ladder rung a variant), counted
      from 0 (K1, K2 at B = 1, one K3 call each, regime 1), its fixed-point
      rows against ``results/sero_*.json``: LL rtol 1e-10, sero 1e-9,
      ``grad_seed_exposed`` 1e-8, ``grad_runup_days`` exactly 0, the ridge's
@@ -281,7 +287,27 @@ Phases (any failure exits non-zero before the final line):
      is launch-bound on the card, 3-4x slower than the host) and the golden
      triangulation of the committed calibration (R4, SciPy on the host; no
      card work); both run in the host tests;
- 30. print the kernels line and, last, the device line.
+ 30. the tableaus and the zero-coefficient rule: K1 and K2 in each regime
+     and K3 in each regime (the one its rule picks counted, the other
+     forced) against their plain versions for each of the five tableaus
+     (rk4, cash_karp, rkf45, dopri5, fehlberg78; each its own
+     instantiation), float64 and float32, 5 chains on the Spain tree cut
+     to 10 days (30 intervals, 2 chunks; one substep a day, dopri5 two,
+     so that FSAL carries a stage), at the bars of
+     ``tests/test_torch_kernels.py`` for small sizes (LL and checkpoints
+     1e-10 / 2e-5, gradients 1e-9 / 1e-3); the same at the stiff input of
+     ``tests/torch_stiff.py`` (dopri5's discarded last stage overflows),
+     where the objective must be finite, not finfo.min; the SASS of every
+     kernel (cuobjdump): no float compare of a tableau coefficient against
+     zero, and the coefficients it loads from the parameter bank are
+     exactly the non-zero ones of the stages it runs (a zero coefficient
+     is never loaded, so no instruction uses it), beside the coefficient
+     FMAs read from the SASS and the count a substep implies (rows the
+     right-hand side reads x non-zero stage coefficients + rows x non-zero
+     update coefficients); then K1, and K2 + K3, timed at every shape of
+     PERF.md's kernel table beside their roofline and chain bounds and the
+     time a dependent stage;
+ 31. print the kernels line and, last, the device line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``mmidv1_tpu``.
 Everything measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -410,20 +436,22 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
 
 
 def spain_case(pipe_cache, dtype_name, mode, tableau, substeps, B, seed,
-               bad_rows=()):
+               bad_rows=(), num_days=None):
     """(engine, kernel args, kw, thetas): the value_and_grad engine of one
     configuration and the kernel inputs of B chains near the initial guess
-    (0.05 sigma noise), with beta_6 NaN on ``bad_rows``."""
+    (0.05 sigma noise), with beta_6 NaN on ``bad_rows``; on the first
+    ``num_days`` observed days (with the run-up) where given."""
     import numpy as np
     import torch
     from mmidv1_tpu_torch.cli.common import load_spain_pipeline
     from mmidv1_tpu_torch.ops import build_objective_fused_grad
 
     dtype = getattr(torch, dtype_name)
-    if dtype_name not in pipe_cache:
-        pipe_cache[dtype_name] = load_spain_pipeline(HERE, dtype=dtype,
-                                                     device="cuda")
-    pipe = pipe_cache[dtype_name]
+    key = dtype_name if num_days is None else f"{dtype_name} {num_days} days"
+    if key not in pipe_cache:
+        pipe_cache[key] = load_spain_pipeline(HERE, dtype=dtype, device="cuda",
+                                              num_days=num_days)
+    pipe = pipe_cache[key]
     vg = build_objective_fused_grad(pipe.space, pipe.params, pipe.data,
                                     pipe.ts, substeps=substeps,
                                     tableau=tableau, constraint_mode=mode,
@@ -476,13 +504,10 @@ def check_k2(case, got, ref, tol):
     x the row's largest magnitude (entries near 0 keep only absolute
     accuracy)."""
     import numpy as np
-    ll, ck = (t.double().cpu().numpy() for t in got)
-    rl, rck = (t.double().cpu().numpy() for t in ref)
-    if not (np.isfinite(ll).all() and np.isfinite(ck).all()):
+    ll, rl = got[0].double().cpu().numpy(), ref[0].double().cpu().numpy()
+    if not (np.isfinite(ll).all() and bool(got[1].isfinite().all())):
         fail(f"K2 {case}: non-finite output")
-    rel_ll = float((np.abs(ll - rl) / np.abs(rl)).max())
-    scale = np.abs(rck).max(axis=(0, 2, 3), keepdims=True)
-    rel_ck = float((np.abs(ck - rck) / (np.abs(rck) + scale)).max())
+    rel_ll, rel_ck = _rel(got[0], ref[0]), _rel_ckpt(got[1], ref[1])
     if not (rel_ll <= tol and rel_ck <= tol):
         fail(f"K2 {case}: rel err LL {rel_ll:.3e}, checkpoints {rel_ck:.3e} "
              f"> {tol:.0e}")
@@ -524,16 +549,10 @@ def check_k3(case, got, ref, dtype_name, tol, bad=()):
             fail(f"K3 {case}: NaN chains {np.flatnonzero(nan_a)[:8]} (plain "
                  f"{np.flatnonzero(nan_b)[:8]}) != injected {list(bad)}")
     good = [c for c in range(B) if c not in bad]
-    err, max_abs = 0.0, 0.0
-    for a, b in zip(got, ref):
-        a = a[..., good].double().cpu().numpy().reshape(-1, len(good))
-        b = b[..., good].double().cpu().numpy().reshape(-1, len(good))
-        max_abs = max(max_abs, float(np.abs(a - b).max()))
-        if dtype_name == "float64":
-            e = np.abs(a - b) / (np.abs(b) + np.abs(b).max(axis=0) + 1e-300)
-        else:
-            e = np.linalg.norm(a - b, axis=0) / (np.linalg.norm(b, axis=0) + 1e-300)
-        err = max(err, float(e.max()))
+    got, ref = [a[..., good] for a in got], [b[..., good] for b in ref]
+    err = _grad_err(got, ref, dtype_name)
+    max_abs = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, ref))
     if not err <= tol:
         fail(f"K3 {case}: gradient error {err:.3e} > {tol:.0e}")
     print(f"[K3] {case}: gradient error {err:.3e} (tol {tol:.0e}), max abs "
@@ -755,6 +774,36 @@ def regime_crossover(cache, sizes=(64, 128, 256, 320, 384, 448, 512, 1024,
 REGIMES = {1: "split", 2: "wide"}
 
 
+# the kernels' tableau types (ops/_build.py's generated header), by name
+TABLEAU_TYPES = {"Rk4": "rk4", "CashKarp": "cash_karp", "Rkf45": "rkf45",
+                 "Dopri5": "dopri5", "Fehlberg78": "fehlberg78"}
+
+
+def kernel_key(name):
+    """``(kernel, dtype, tableau)`` of a mangled SEPAIHRD kernel name, e.g.
+    ``("K1 wide", "float32", "dopri5")`` or ``("K3 sweep", "float64",
+    "rkf45")``; ``tableau`` is None for K3's compose kernel and ``"S=7"``
+    for a build templated on the stage count (before the tableau types).
+    None for any other name."""
+    import re
+    m = re.search(r"sepaihrd_(forward_wide|forward_split|adjoint_[a-z]+)"
+                  r"_kernelI([fd])(\w*)", name)
+    if not m:
+        return None
+    rest = m.group(3)
+    tab = re.match(r"N\w*?Tab([A-Za-z0-9]+?)E", rest)
+    stages = re.match(r"Li(\d+)E", rest)
+    tableau = (TABLEAU_TYPES.get(tab.group(1), tab.group(1)) if tab
+               else f"S={stages.group(1)}" if stages else None)
+    kind = m.group(1)
+    if kind.startswith("forward"):
+        ckpt = re.search(r"Lb([01])E", rest)
+        kind = f"{'K2' if ckpt and ckpt.group(1) == '1' else 'K1'} {kind[8:]}"
+    else:
+        kind = f"K3 {kind[8:]}"
+    return kind, "float32" if m.group(2) == "f" else "float64", tableau
+
+
 def forward_ptxas(build_dir):
     """Registers, spills and static shared memory of every forward kernel
     (K1's instantiations in sepaihrd_fused, K2's in sepaihrd_adjoint), from
@@ -766,12 +815,8 @@ def forward_ptxas(build_dir):
         with open(os.path.join(build_dir, f"{src}.ptxas.txt")) as f:
             for ln in f:
                 if "Function properties for" in ln:
-                    m = re.search(r"sepaihrd_forward_(wide|split)_kernelI([fd])"
-                                  r"Li(\d+)ELb([01])E", ln)
-                    key = m and (f"{'K2' if m.group(4) == '1' else 'K1'} "
-                                 f"{m.group(1)} "
-                                 f"{'float32' if m.group(2) == 'f' else 'float64'}"
-                                 f" S={m.group(3)}")
+                    k = kernel_key(ln)
+                    key = k and k[0][:2] in ("K1", "K2") and " ".join(k)
                 elif key and "bytes stack frame" in ln:
                     stack, stores, loads = (int(x) for x in
                                             re.findall(r"(\d+) bytes", ln))
@@ -794,7 +839,7 @@ def forward_ptxas(build_dir):
 
 
 def sass_loops(lib_paths, out_dir):
-    """What the card runs: for the dopri5 forward kernels (S = 7, both
+    """What the card runs: for the dopri5 forward kernels (both
     regimes, both types; K1 from the fused library, K2 from the adjoint
     one) the SASS of the built libraries (cuobjdump), its loops (a backward
     branch and its target) and their instruction counts by opcode. A loop's
@@ -813,14 +858,11 @@ def sass_loops(lib_paths, out_dir):
         text = subprocess.run([exe, "-sass", lib_path], capture_output=True,
                               text=True, timeout=600, check=True).stdout
         for blk in re.split(r"\n\s*Function : ", text)[1:]:
-            name = blk.split("\n", 1)[0].strip()
-            m = re.search(r"sepaihrd_forward_(wide|split)_kernelI([fd])Li7ELb([01])E",
-                          name)
-            if m:
-                kind = (f"{'K2' if m.group(3) == '1' else 'K1'} {m.group(1)} "
-                        f"{'float32' if m.group(2) == 'f' else 'float64'}")
-                out[kind] = _sass_kernel(kind, blk, 4 if m.group(2) == "f" else 8,
-                                         out_dir)
+            k = kernel_key(blk.split("\n", 1)[0].strip())
+            if k and k[0][:2] in ("K1", "K2") and k[2] == "dopri5":
+                kind = f"{k[0]} {k[1]}"
+                out[kind] = _sass_kernel(kind, blk,
+                                         4 if k[1] == "float32" else 8, out_dir)
     if not out:
         fail(f"cuobjdump shows no forward kernel in {lib_paths}")
     return out
@@ -1177,18 +1219,17 @@ def gradient_anchor(cache, n_chains=4, h=1e-4, seed=5):
 
 def k3_ptxas(report):
     """Registers and spill bytes of every K3 kernel, from the build's own
-    ptxas report: ``{stage: {"float32 S=7": {registers, spill_stores,
+    ptxas report: ``{stage: {"float32 dopri5": {registers, spill_stores,
     spill_loads, stack}}}``; printed one line a stage and type."""
     import re
     out = {}
     key = None
     with open(report) as f:
         for ln in f:
-            m = re.search(r"sepaihrd_adjoint_([a-z]+)_kernelI([fd])(?:Li(\d+)E)?", ln)
             if "Function properties for" in ln:
-                key = m and (m.group(1), ("float32" if m.group(2) == "f"
-                                          else "float64")
-                             + (f" S={m.group(3)}" if m.group(3) else ""))
+                k = kernel_key(ln)
+                key = k and k[0].startswith("K3") and (
+                    k[0][3:], " ".join(x for x in k[1:] if x))
             elif key and "bytes stack frame" in ln:
                 stack, stores, loads = (int(x) for x in re.findall(r"(\d+) bytes", ln))
                 out.setdefault(key[0], {})[key[1]] = dict(
@@ -1208,12 +1249,14 @@ def k3_ptxas(report):
 
 def k3_phases(cache):
     """Phases 7 and 8: ``(K3 comparisons, K2/K3 timings, regime crossover)``."""
+    # one tableau a type (phase 30 holds every tableau and type at 5
+    # chains): the plain K3 at 512 chains takes tens of seconds a case
     k3_cases = []
-    for dtype_name, tol in (("float64", 1e-9), ("float32", 1e-3)):
-        for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
-            k3_cases.append(compare_k3(f"{dtype_name} {tableau}@{substeps} B=512",
-                                       512, dtype_name, tableau, substeps, tol,
-                                       cache, seed=30 + len(k3_cases)))
+    for dtype_name, tol, tableau, substeps in (
+            ("float64", 1e-9, "dopri5", 4), ("float32", 1e-3, "cash_karp", 3)):
+        k3_cases.append(compare_k3(f"{dtype_name} {tableau}@{substeps} B=512",
+                                   512, dtype_name, tableau, substeps, tol,
+                                   cache, seed=30 + len(k3_cases)))
     timings = [time_adjoint(B, dtype_name, cache, plain=B <= 64)
                for B in (8192, 64) for dtype_name in ("float32", "float64")]
     return k3_cases, timings, regime_crossover(cache)
@@ -3084,11 +3127,11 @@ def nuts_recipe_phase(tmp, card, host, grad_shapes):
     with SeroSplit() as split:
         secs, c = drive_main(nc, ["--serovalid", "--mass", "logit-dense",
                                   "--trace", lt, "--warm", lt, "--chains",
-                                  "64", "--depth", "2", "--warmup", "0",
+                                  "64", "--depth", "1", "--warmup", "0",
                                   "--iterations", "2", "--segments", "1",
                                   "--out", sv], "nuts serovalid")
     expect_gradients("nuts serovalid", c, 64)
-    paths["nuts serovalid depth 2 B=64"] = c
+    paths["nuts serovalid depth 1 B=64"] = c
     with open(os.path.join(sv, "campaign_metadata.json")) as f:
         if _json.load(f)["serovalid"]["severity_floor_div"] != 10.0:
             fail("nuts serovalid: no serovalid block in the metadata")
@@ -3338,11 +3381,11 @@ REMATCH_B, REMATCH_STEPS, REMATCH_BURN = 2048, 40, 10   # depth cut from 2000 / 
 K3_PLAIN_ROWS = 512           # the plain K3's saved tensors (phase 7)
 PROBE_SE, PROBE_TARGET = 0.0028, 0.048
 PROBE_BOXES = ("reference", "B", "C")
-PROBE_MAINS = {            # depth cut: --maxiter 2 --rounds 1, one ladder rung
-    "sero_profile_probe": ["--maxiter", "2", "--rounds", "1"],
-    "sero_ridge_scan": ["--maxiter", "2"],
-    "sero_sensitivity": ["--maxiter", "2", "--rounds", "1"],
-    "sero_force_profile": ["--maxiter", "2", "--se-ladder", "0.01"],
+PROBE_MAINS = {            # depth cut: --maxiter 1 --rounds 1, one ladder rung
+    "sero_profile_probe": ["--maxiter", "1", "--rounds", "1"],
+    "sero_ridge_scan": ["--maxiter", "1"],
+    "sero_sensitivity": ["--maxiter", "1", "--rounds", "1"],
+    "sero_force_profile": ["--maxiter", "1", "--se-ladder", "0.01"],
 }
 
 
@@ -3995,6 +4038,461 @@ def recovery_phase(card):
     return out
 
 
+# ------------------------------------------------------------------ phase 30
+# Every kernel is built once per tableau, its zero pattern compiled in
+# (csrc/sepaihrd_common.cuh): a zero coefficient emits no instruction, as
+# the Pallas kernel and the plain version skip it. Phase 30 holds every
+# instantiation against the plain version, also at the stiff input of
+# tests/torch_stiff.py, reads the SASS for compares on a coefficient and
+# counts the stage-axpy FMAs, and times K1 / K2 / K3 at PERF.md's shapes.
+PHASE30_TABLEAUS = ("rk4", "cash_karp", "rkf45", "dopri5", "fehlberg78")
+PHASE30_DAYS = 10        # 30 intervals with the run-up: 2 chunks, one ragged
+PHASE30_B = 5
+# one substep a day, two for dopri5, whose FSAL carries a stage inside a day
+PHASE30_SUBSTEPS = {"dopri5": 2}
+# tests/test_torch_kernels.py's bars at small sizes: LL and checkpoints
+# (rtol, checkpoints floored at the row's largest entry), gradients (f64
+# rtol floored at the chain's largest entry; f32 per-chain 2-norm)
+SMALL_TOL = {"float64": 1e-10, "float32": 2e-5}
+GRAD_TOL = {"float64": 1e-9, "float32": 1e-3}
+# PERF.md's table shapes: (kernels, B, dtype, tableau, substeps, mode,
+# observed days; None: the full grid of 325 intervals)
+TABLE_SHAPES = (
+    ("K1", 1024, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 512, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 4096, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 8192, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 8192, "float64", "dopri5", 4, "reflect", None),
+    ("K1", 1, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 10, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 12, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 40, "float32", "dopri5", 4, "reflect", None),
+    ("K1", 257, "float64", "dopri5", 4, "reflect", None),
+    ("K1", 2048, "float32", "cash_karp", 3, "reflect", None),
+    ("K1", 1, "float64", "dopri5", 4, "reflect", None),
+    ("K1", 32, "float64", "dopri5", 2, "reflect", 60),
+    ("K2K3", 64, "float32", "dopri5", 4, "clamp", None),
+    ("K2K3", 64, "float64", "dopri5", 4, "clamp", None),
+    ("K2K3", 8192, "float32", "dopri5", 4, "clamp", None),
+    ("K2K3", 8192, "float64", "dopri5", 4, "clamp", None),
+    ("K2K3", 2048, "float32", "cash_karp", 3, "reflect", None),
+    ("K2K3", 1, "float64", "dopri5", 4, "reflect", None),
+    ("K2K3", 4, "float64", "dopri5", 2, "clamp", 30),
+)
+
+
+def _rel(got, ref):
+    """The largest |got - ref| / |ref|; inf where a value is not finite."""
+    import numpy as np
+    a, b = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        return float("inf")
+    return float((np.abs(a - b) / np.abs(b)).max())
+
+
+def _rel_ckpt(got, ref):
+    """Checkpoints against the plain version's: per compartment row, with a
+    floor of the row's largest magnitude; inf where a value is not
+    finite."""
+    import numpy as np
+    a, b = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        return float("inf")
+    scale = np.abs(b).max(axis=(0, 2, 3), keepdims=True)
+    return float((np.abs(a - b) / np.maximum(np.abs(b) + scale, 1e-300)).max())
+
+
+def _grad_err(got, ref, dtype_name):
+    """K3's four outputs against its plain version's, every chain: f64 the
+    largest |diff| / (|ref| + max|ref| of the chain), f32 the largest
+    per-chain relative 2-norm; inf where a value is not finite."""
+    import numpy as np
+    err = 0.0
+    for a, b in zip(got, ref):
+        B = a.shape[-1]
+        a = a.double().cpu().numpy().reshape(-1, B)
+        b = b.double().cpu().numpy().reshape(-1, B)
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            return float("inf")
+        if dtype_name == "float64":
+            e = np.abs(a - b) / (np.abs(b) + np.abs(b).max(axis=0) + 1e-300)
+        else:
+            e = np.linalg.norm(a - b, axis=0) / (np.linalg.norm(b, axis=0) + 1e-300)
+        err = max(err, float(e.max()))
+    return err
+
+
+def hold_all(case, dtype_name, args, kw):
+    """K1 and K2 forced into each regime, and K3 in the regime its rule
+    picks (counted) and in the other (forced), against their plain versions
+    on one set of kernel inputs: ``{case, errors, failed, k3_picked}``."""
+    import torch
+    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_adjoint_reference,
+                                      fused_forward_ckpt,
+                                      fused_forward_ckpt_reference,
+                                      fused_objective)
+    _y0, agevec, scal, beff, obs, valid, M = args
+    ll_ref, ck_ref = fused_forward_ckpt_reference(*args, **kw)
+    g = torch.ones_like(ll_ref)
+    want = fused_adjoint_reference(agevec, scal, beff, obs, valid, ck_ref, g,
+                                   M, **kw)
+    err = {}
+    for regime, name in REGIMES.items():
+        ll1 = fused_objective(*args, **kw, regime=regime)
+        ll2, ck = fused_forward_ckpt(*args, **kw, regime=regime)
+        err[f"K1 {name}"] = _rel(ll1, ll_ref)
+        err[f"K2 {name}"] = max(_rel(ll2, ll_ref), _rel_ckpt(ck, ck_ref))
+    got = fused_adjoint(agevec, scal, beff, obs, valid, ck_ref, g, M, **kw)
+    picked = fused_adjoint.regime
+    other, _n = k3_forced(3 - picked, agevec, scal, beff, obs, valid, ck_ref,
+                          g, M, kw)
+    torch.cuda.synchronize()
+    err[f"K3 regime {picked}"] = _grad_err(got, want, dtype_name)
+    err[f"K3 regime {3 - picked}"] = _grad_err(other, want, dtype_name)
+    failed = [k for k, e in err.items() if not e <= (
+        GRAD_TOL if k.startswith("K3") else SMALL_TOL)[dtype_name]]
+    print(f"[tableaus] {case}: " + ", ".join(f"{k} {e:.2e}" for k, e in
+                                             err.items())
+          + (f"; ABOVE THE BAR: {failed}" if failed else ""), flush=True)
+    return dict(case=case, errors=err, failed=failed, k3_picked=picked)
+
+
+def stiff_check(dtype_name):
+    """``hold_all`` at the stiff input (tests/torch_stiff.py), and the
+    objective there, which must be finite: a kernel that multiplied by a
+    zero coefficient would give NaN and the objective ``finfo.min``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_stiff as stiff
+
+    dtype = getattr(torch, dtype_name)
+    ll, thetas = stiff.stiff_objective(dtype, "cuda")
+    args, kw, _inf = ll.prep.kernel_args(thetas)
+    kw = dict(kw, substeps=stiff.SUBSTEPS, tableau=stiff.TABLEAU)
+    out = hold_all(f"{dtype_name} stiff input ({stiff.TABLEAU}@"
+                   f"{stiff.SUBSTEPS}, gamma_ICU {stiff.STIFF_RATE[dtype_name]:g})",
+                   dtype_name, args, kw)
+    obj = ll(thetas).double().cpu().numpy()
+    out["objective"] = obj.tolist()
+    out["objective_finfo_min"] = int((obj == torch.finfo(dtype).min).sum())
+    if out["objective_finfo_min"] or not np.isfinite(obj).all():
+        out["failed"].append("objective")
+    print(f"[tableaus] {dtype_name} stiff input: the objective through K1 "
+          f"gives {obj.tolist()} ({out['objective_finfo_min']} of "
+          f"{len(obj)} finfo.min)", flush=True)
+    return out
+
+
+def _sass_functions(lib_paths, out_dir):
+    """``{(kernel, dtype, tableau): [(address, opcode, text)]}`` of every
+    SEPAIHRD kernel in the libraries (cuobjdump; each library's SASS saved
+    gzipped under ``out_dir``), or None without cuobjdump."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    import gzip
+    out = {}
+    for lib_path in lib_paths:
+        text = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                              text=True, timeout=600, check=True).stdout
+        os.makedirs(out_dir, exist_ok=True)
+        name = os.path.basename(lib_path).split("_")[:-1]
+        with gzip.open(os.path.join(out_dir, "_".join(name) + ".sass.gz"),
+                       "wt") as f:
+            f.write(text)
+        for blk in re.split(r"\n\s*Function : ", text)[1:]:
+            key = kernel_key(blk.split("\n", 1)[0].strip())
+            if key is None:
+                continue
+            ins = []
+            for ln in blk.splitlines():
+                mm = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+                if mm:
+                    body = mm.group(2)
+                    if body.startswith("@"):
+                        body = body.split(None, 1)[1]
+                    ins.append((int(mm.group(1), 16), body.split()[0], body))
+            out[key] = ins
+    return out
+
+
+# Where each kernel's tableau coefficients sit in constant bank 0: Consts<T>
+# is every kernel's last parameter, after these bytes of pointers (8 each)
+# and ints (4 each) (csrc/sepaihrd_forward.cuh, csrc/sepaihrd_adjoint.cu);
+# kernel parameters start at 0x210 on sm_90. Consts starts with h*a (13 x
+# 13) and h*b (13).
+PARAM_BASE = 0x210
+PARAMS_BEFORE_CONSTS = {"K1 wide": 84, "K1 split": 84, "K2 wide": 84,
+                        "K2 split": 84, "K3 days": 64, "K3 stages": 64,
+                        "K3 chunk": 108, "K3 sweep": 144}
+
+
+def coefficient_at(kind, dtype_name, addr):
+    """The tableau coefficient at byte ``addr`` of bank 0 in a kernel of
+    ``kind``: ``("a", i, j)``, ``("b", i)`` or None."""
+    if kind not in PARAMS_BEFORE_CONSTS:
+        return None
+    size = 8 if dtype_name == "float64" else 4
+    before = PARAMS_BEFORE_CONSTS[kind]
+    k = (addr - PARAM_BASE - (before + size - 1) // size * size) // size
+    if 0 <= k < 169:
+        return ("a", k // 13, k % 13)
+    if 169 <= k < 182:
+        return ("b", k - 169)
+    return None
+
+
+def coefficient_uses(kind, dtype_name, ins):
+    """What one kernel does with its tableau coefficients, from its SASS:
+    ``(read, compares, fmas)``: every coefficient some instruction reads
+    from bank 0; the addresses of the float compares of a coefficient
+    against zero (an FSETP / DSETP of RZ and a coefficient, read directly
+    or through a register a move or a load filled with it); and, by
+    coefficient, the FFMA / DFMA that take one as a multiplicand. The
+    registers are followed in the order of the code, not of its branches,
+    so the FMA counts are a reading, not a check."""
+    import re
+    const = re.compile(r"c\[0x0\]\[(0x[0-9a-f]+)\]")
+    reg = re.compile(r"\b(U?R\d+)\b")
+    held, read, compares, fmas = {}, set(), [], {}
+
+    def coef_of(operand):
+        m = const.search(operand)
+        if m:
+            return coefficient_at(kind, dtype_name, int(m.group(1), 16))
+        return next((held[r] for r in reg.findall(operand) if r in held), None)
+
+    for addr, op, body in ins:
+        parts = body.split(None, 1)
+        operands = [o.strip() for o in parts[1].split(",")] if len(parts) > 1 else []
+        srcs = operands[1:]
+        # a 64- or 128-bit load of float32 values reads two or four
+        words = 4 if ".128" in op else 2 if ".64" in op else 1
+        for m in const.finditer(body):
+            for w in range(words if dtype_name == "float32" else 1):
+                c = coefficient_at(kind, dtype_name, int(m.group(1), 16) + 4 * w)
+                if c:
+                    read.add(c)
+        base = op.split(".")[0]
+        if base in ("FSETP", "DSETP") and "RZ" in srcs and \
+                any(coef_of(o) for o in srcs):
+            compares.append(addr)
+        if base in ("FFMA", "DFMA"):
+            c = next((coef_of(o) for o in srcs[:2] if coef_of(o)), None)
+            if c:
+                fmas[c] = fmas.get(c, 0) + 1
+        dest = reg.match(operands[0]) if operands else None
+        if dest:
+            moved = base in ("MOV", "UMOV", "LDC", "ULDC", "R2UR") or \
+                op.startswith(("IMAD.MOV", "IMAD.U32"))
+            c = next((coef_of(o) for o in srcs if coef_of(o)), None) \
+                if moved else None
+            r = dest.group(1)
+            regs = [r]
+            if ".64" in op or base.startswith("D"):
+                regs.append(re.sub(r"\d+$", lambda x: str(int(x.group()) + 1), r))
+            for x in regs:
+                if c:
+                    held[x] = c
+                else:
+                    held.pop(x, None)
+    return read, compares, fmas
+
+
+def expected_coefficients(kind, tableau):
+    """The coefficients a kernel of ``kind`` must read, and no other: the
+    non-zero ``a`` of the stages it evaluates (the forward kernels and K3's
+    days: live or FSAL-carried; K3's other stages: live) and, but for K3's
+    stages kernel, every non-zero ``b``."""
+    from mmidv1_tpu_torch.ode.tableaus import get_tableau
+    from mmidv1_tpu_torch.ops.sepaihrd_fused import stage_use
+    tab = get_tableau(tableau)
+    _feeds, live, evaluated = stage_use(tableau)
+    stages = evaluated if kind.split()[0] in ("K1", "K2") or \
+        kind == "K3 days" else live
+    want = {("a", i, j) for i in range(tab.stages) if stages[i]
+            for j in range(i) if float(tab.a[i, j]) != 0.0}
+    if kind != "K3 stages":
+        want |= {("b", i) for i in range(tab.stages) if float(tab.b[i]) != 0.0}
+    return want
+
+
+def sass_tableaus(lib_paths, out_dir):
+    """Phase 30's SASS check of every SEPAIHRD kernel: no float compare of
+    a tableau coefficient against zero, and the coefficients it reads from
+    the parameter bank are exactly the non-zero ones of the stages it runs
+    (a zero coefficient is never loaded, so no instruction can use it).
+    Beside them, the coefficient FMAs a forward substep implies (rows the
+    right-hand side reads x non-zero stage coefficients + rows x non-zero
+    update coefficients: 7 and 10 a substep over the split regime's two
+    warps as in the wide one) and those read from the SASS.
+    ``({kernel: counts}, [misses])``; ``(None, [])`` without cuobjdump."""
+    import numpy as np
+    from mmidv1_tpu_torch.ode.tableaus import get_tableau
+    funcs = _sass_functions(lib_paths, out_dir)
+    if funcs is None:
+        print("[sass-tableaus] no cuobjdump in the toolkit: not checked",
+              flush=True)
+        return None, []
+    out, misses = {}, []
+    for (kind, dtype_name, tableau), ins in sorted(funcs.items(),
+                                                   key=lambda kv: str(kv[0])):
+        name = " ".join(x for x in (kind, dtype_name, tableau) if x)
+        read, compares, fmas = coefficient_uses(kind, dtype_name, ins)
+        row = dict(instructions=len(ins), coefficient_compares=len(compares),
+                   coefficients_read=len(read),
+                   coefficient_fmas=sum(fmas.values()))
+        if compares:
+            misses.append(f"{name}: {len(compares)} compares of a "
+                          f"coefficient against zero")
+        if tableau in PHASE30_TABLEAUS:
+            tab = get_tableau(tableau)
+            want = expected_coefficients(kind, tableau)
+            zero = sorted(c for c in read - want if (
+                float(tab.a[c[1], c[2]]) if c[0] == "a" else float(tab.b[c[1]])) == 0.0)
+            row.update(zero_read=[list(c) for c in zero],
+                       unused=[list(c) for c in sorted(read - want) if c not in zero],
+                       missing=[list(c) for c in sorted(want - read)])
+            if zero or row["missing"]:
+                misses.append(f"{name}: reads zero coefficients {zero}, "
+                              f"misses non-zero {row['missing']}")
+            if kind.split()[0] in ("K1", "K2"):
+                n_a = sum(1 for c in want if c[0] == "a")
+                row["fmas_a_substep"] = 7 * n_a + 10 * int(np.count_nonzero(tab.b))
+        out[name] = row
+    with open(os.path.join(out_dir, "tableaus.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    n_cmp = sum(r["coefficient_compares"] for r in out.values())
+    n_zero = sum(len(r.get("zero_read", ())) for r in out.values())
+    print(f"[sass-tableaus] {len(out)} kernels: {n_cmp} compares of a "
+          f"coefficient against zero, {n_zero} zero coefficients read",
+          flush=True)
+    for name, r in out.items():
+        print(f"[sass-tableaus]   {name}: {r['coefficient_compares']} "
+              f"compares, {r['coefficients_read']} coefficients read "
+              f"(zero: {r.get('zero_read', '-')}), {r['coefficient_fmas']} "
+              f"coefficient FMAs (a substep: {r.get('fmas_a_substep', '-')})",
+              flush=True)
+    return out, misses
+
+
+def table_timings(cache):
+    """K1, and K2 + K3, at each of PERF.md's table shapes (CUDA events, 10
+    launches after a warm-up; K3 in the regime its rule picks): ms, regime,
+    roofline bound, the forward's chain bound over the same grid
+    (``chain_bound_ms``) and the time a dependent stage, at the SM clock
+    read under load."""
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import CLAMP, REFLECT
+    from mmidv1_tpu_torch.ops import (fused_forward_ckpt, fused_objective,
+                                      sepaihrd_adjoint as adj)
+    from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+
+    rows = []
+    clock = None
+    for kern, B, dtype_name, tableau, substeps, mode, days in TABLE_SHAPES:
+        _vg, args, kw, _th = spain_case(
+            cache, dtype_name, CLAMP if mode == "clamp" else REFLECT, tableau,
+            substeps, B, 40 + B, num_days=days)
+        if clock is None:
+            clock, _top = sm_clock_mhz(lambda: fused_objective(*args, **kw))
+        n_int = int(sum(kw["run_count"]))
+        elem = 8 if dtype_name == "float64" else 4
+        stages = sf.dependent_stages(tableau, substeps, n_int)
+        shape = dict(B=B, dtype=dtype_name, tableau=tableau, substeps=substeps,
+                     mode=mode, n_intervals=n_int, dependent_stages=stages,
+                     chain_bound_ms=chain_bound_ms(tableau, substeps, n_int,
+                                                   elem, clock),
+                     sm_clock_mhz=clock)
+        found = []
+        if kern == "K1":
+            ms = cuda_ms(lambda: fused_objective(*args, **kw), reps=10)
+            found.append(dict(shape, kernel="K1", ms=ms,
+                              regime=REGIMES[fused_objective.regime],
+                              **k1_bound(B, dtype_name, args, kw,
+                                         args[4].shape[0])))
+        else:
+            _y0, agevec, scal, beff, obs, valid, M = args
+            ll, ck = fused_forward_ckpt(*args, **kw)
+            g = torch.ones_like(ll)
+            bounds = adjoint_bounds(B, dtype_name, kw, args[4].shape[0], args, ck)
+            ms = cuda_ms(lambda: fused_forward_ckpt(*args, **kw), reps=10)
+            found.append(dict(shape, kernel="K2", ms=ms,
+                              regime=REGIMES[fused_forward_ckpt.regime],
+                              **bounds["fwd"]))
+            run3 = lambda: adj._launch_adjoint(agevec, scal, beff, obs, valid,
+                                               ck, g, M, **kw)
+            _out, regime, n_kernels = run3()
+            ms = cuda_ms(run3, reps=10)
+            found.append(dict(shape, kernel="K3", ms=ms,
+                              regime=f"regime {regime}, {n_kernels} kernels",
+                              **{k: v for k, v in bounds["bwd"].items()
+                                 if k != "design_bound_ms"}))
+        for r in found:
+            ns = r["ms"] * 1e6 / stages
+            r.update(ns_per_stage=ns, cycles_per_stage=ns * clock / 1e3)
+            print(f"[table] {r['kernel']} B={B} {dtype_name} {tableau}@"
+                  f"{substeps} {mode.upper()} {n_int} intervals: {r['ms']:.4f} "
+                  f"ms ({r['regime']}); bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}), chain {r['chain_bound_ms']:.4f} ms; "
+                  f"{ns:.1f} ns = {r['cycles_per_stage']:.0f} cycles a "
+                  f"dependent stage at {clock:.0f} MHz", flush=True)
+            rows.append(r)
+    return rows
+
+
+def tableau_phase(cache, strict=True):
+    """Phase 30. ``strict``: fail on any miss; else list the misses and
+    return them too (``--tableaus``, for a run against another build)."""
+    import torch
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.ops import (_build, fused_adjoint,
+                                      fused_forward_ckpt, fused_objective)
+    t_phase = time.perf_counter()
+    zero_counts()
+    cases = []
+    for dtype_name in ("float64", "float32"):
+        for i, tableau in enumerate(PHASE30_TABLEAUS):
+            substeps = PHASE30_SUBSTEPS.get(tableau, 1)
+            _vg, args, kw, _th = spain_case(
+                cache, dtype_name, REFLECT, tableau, substeps, PHASE30_B,
+                300 + i, num_days=PHASE30_DAYS)
+            cases.append(hold_all(
+                f"{dtype_name} {tableau}@{substeps} B={PHASE30_B} "
+                f"{PHASE30_DAYS} days", dtype_name, args, kw))
+    stiff = [stiff_check(d) for d in ("float64", "float32")]
+    counts = dict(k1=fused_objective.launches,
+                  k1_regime_calls=dict(fused_objective.regime_calls),
+                  k2=fused_forward_ckpt.launches,
+                  k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
+                  k3=fused_adjoint.launches,
+                  k3_kernels=fused_adjoint.kernel_launches,
+                  k3_regime_calls=dict(fused_adjoint.regime_calls),
+                  k3_forced_calls=len(cases) + len(stiff))
+    checks_s = time.perf_counter() - t_phase
+    sass, sass_misses = sass_tableaus(
+        [_build.library_path("sepaihrd_fused"),
+         _build.library_path("sepaihrd_adjoint")],
+        os.path.join(HERE, "chiprun_out", "sass"))
+    table = table_timings(cache)
+    torch.cuda.synchronize()
+    misses = [f"{c['case']}: {k}" for c in cases + stiff for k in c["failed"]]
+    misses += sass_misses
+    out = dict(cases=cases, stiff=stiff, launches=counts, sass=sass,
+               table=table, misses=misses, checks_seconds=checks_s,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[tableaus] phase 30: {out['seconds']:.1f} s ({checks_s:.1f} s of "
+          f"checks); launches {counts}; {len(misses)} misses", flush=True)
+    for m in misses:
+        print(f"[tableaus] MISS {m}", flush=True)
+    if misses and strict:
+        fail("phase 30: " + "; ".join(misses))
+    return out
+
+
 def main():
     if "--host-refs" in sys.argv[1:]:
         sys.path.insert(0, HERE)
@@ -4010,6 +4508,7 @@ def main():
     nuts_only = "--nuts" in sys.argv[1:]
     probes_only = "--probes" in sys.argv[1:]
     recovery_only = "--recovery" in sys.argv[1:]
+    tableaus_only = "--tableaus" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -4137,6 +4636,16 @@ def main():
               "mala_rematch and the four seroprevalence probes checked on the "
               "card; run without arguments for the whole check", flush=True)
         return 0
+
+    if tableaus_only:
+        p30 = results["tableaus"] = tableau_phase(cache, strict=False)
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out",
+                               "chip_smoke_tableaus.json"), "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print(f"chip_smoke --tableaus: {len(p30['misses'])} misses; run "
+              "without arguments for the whole check", flush=True)
+        return 1 if p30["misses"] else 0
 
     if recovery_only:
         results["recovery"] = recovery_phase(card)
@@ -4351,7 +4860,12 @@ def main():
             rec_run["r3"]["kernels"].items()):
         new_cfgs[k].append(c)
 
-    # 30. the kernels line, the card, the device line: each kernel's top-level
+    # 30. the five tableaus, the stiff input, the SASS; the table's timings
+    p30 = results["tableaus"] = tableau_phase(cache)
+    p30_counts = p30["launches"]
+    checked = "phase 30 (five tableaus and the stiff input, held against plain)"
+
+    # 31. the kernels line, the card, the device line: each kernel's top-level
     # numbers at its main path's shape, every other comparison under configs
     head = main_shape
     main32, main64 = (next(t for t in timings if t["B"] == 64
@@ -4411,6 +4925,8 @@ def main():
                                          "K1_wide_ms")}
                       for r in fwd["crossover"]],
         "shape": "B=1024 float32 dopri5@4",
+        "checked_launches": {checked: {k: p30_counts[k] for k in (
+            "k1", "k1_regime_calls")}},
         "configs": [{k: c[k] for k in ("case", "max_rel_err", "max_abs_err",
                                        "ms", "plain_ms", "bound_ms", "bound_by")}
                     for c in cases + main_run["primary"]["hillmcmc"][
@@ -4441,6 +4957,8 @@ def main():
                                   ("mala B=64", mala),
                                   ("mala B=1024", mala_wide)] + grad_paths},
         "shape": "B=64 float32 dopri5@4 CLAMP",
+        "checked_launches": {checked: {k: p30_counts[k] for k in (
+            "k2", "k2_regime_calls")}},
         "configs": [main64["k2_check"]] + k2_cases + new_cfgs["k2"]}, {
         "name": "sepaihrd_adjoint", "route": "cuda",
         "source": "mmidv1_tpu_torch/csrc/sepaihrd_adjoint.cu",
@@ -4465,6 +4983,8 @@ def main():
                                   ("mala B=1024", mala_wide)] + grad_paths},
         "by_regime": {f"B={t['B']} {t['dtype']}": t["k3_forced"]
                       for t in timings},
+        "checked_launches": {checked: {k: p30_counts[k] for k in (
+            "k3", "k3_kernels", "k3_regime_calls", "k3_forced_calls")}},
         "configs": [main64["k3_check"]] + k3_cases + new_cfgs["k3"]}]
     results["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

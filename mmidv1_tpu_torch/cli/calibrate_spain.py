@@ -49,6 +49,21 @@ from .common import load_spain_pipeline
 REFERENCE_BEST_LL = 1.41969205e+06   # data/configuration/initial_guess.txt:3
 
 
+def reselect_float64(space, params, data, ts, cands, *, substeps: int,
+                     tableau: str, device):
+    """The float64 log-likelihoods of the candidate thetas ``cands`` and the
+    parameters they apply to, as ``scripts/calibrate_spain.py`` computes
+    them: the run's float32 parameters cast up to float64 and the run's own
+    space (its float32 bounds, exact in float64), REFLECT, on the run's grid
+    (not the configuration reloaded in float64, which is another base
+    point). Returns ``(lls64 (n,), params64)``."""
+    params64 = params.to(device, torch.float64)
+    ll64 = build_objective_fused(space, params64, data, ts, substeps=substeps,
+                                 tableau=tableau, constraint_mode=REFLECT,
+                                 dtype=torch.float64, device=device)
+    return ll64(cands.to(device=device, dtype=torch.float64)), params64
+
+
 def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
                     pso_particles: int = 512, pso_iters: int = 60,
                     mcmc_iters: int = 600, thinning: int = 5,
@@ -149,18 +164,17 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
     # Re-evaluate every chain's MAP and phase 1's best in double precision on
     # the SAME grid, through the same kernel, and pick the true argmax.
     if x64:
-        pipe64, best_ll64, best_theta = pipe, best_ll, result.best_theta
+        params64, best_ll64, best_theta = params, best_ll, result.best_theta
     else:
-        pipe64 = load_spain_pipeline(root, dtype=torch.float64, device=dev,
-                                     num_days=num_days)
         cands = [result.best_theta[None, :]]
         if result.mh_result is not None:
             cands.append(result.mh_result.final_state.best_x)
         if result.phase1_best is not None:
             cands.append(result.phase1_best[None, :])
         cands = torch.unique(torch.cat(cands).to(torch.float64), dim=0)
-        lls64 = objective(REFLECT, pipe64.space, pipe64.params,
-                          torch.float64)(cands)
+        lls64, params64 = reselect_float64(space, params, data, ts, cands,
+                                           substeps=substeps, tableau=tableau,
+                                           device=dev)
         k = int(torch.argmax(lls64))
         best_ll64, best_theta = float(lls64[k]), cands[k]
         log(f"float64 re-selection over {len(cands)} candidate MAPs: "
@@ -207,8 +221,7 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
             samples_finite=bool(torch.isfinite(nres.samples).all()))
     if out:
         os.makedirs(out, exist_ok=True)
-        best_params = pipe64.space.apply(pipe64.params,
-                                         best_theta.to(torch.float64))
+        best_params = space.apply(params64, best_theta.to(torch.float64))
         save_calibration_results(os.path.join(out, "calibrated_parameters.txt"),
                                  best_params, list(space.names), best_ll64)
         if result.samples is not None:

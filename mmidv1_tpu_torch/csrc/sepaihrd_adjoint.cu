@@ -85,7 +85,12 @@
 // Numerics: no --use_fast_math, accurate log and division; nvcc's FMA
 // contraction makes K2/K3 differ from their plain PyTorch versions by
 // rounding only. Stage inputs are computed from the substep's start with
-// every first stage evaluated afresh, as the Pallas adjoint does.
+// every first stage evaluated afresh, as the Pallas adjoint does. Every
+// kernel is templated on the tableau's type and follows the zero rule of
+// sepaihrd_common.cuh: a zero a_ij or b_i emits no instruction, a zero b_i
+// seeds its stage cotangent with exactly 0, and a dead stage (dopri5's
+// last, fehlberg78's stage 10) is neither recomputed nor transposed, as
+// jax.vjp of the Pallas adjoint's substep never transposes it.
 
 #include "sepaihrd_forward.cuh"
 
@@ -114,21 +119,24 @@ struct Col {
 };
 
 // The stage inputs Y_i = y + sum_{j<i} a_ij k_j of one substep started at y,
-// every stage evaluated afresh; put(i, Y_i) takes each (rows 0..6 matter).
-template <typename T, int S, typename Put>
+// every stage evaluated afresh; put(i, Y_i) takes each live one (rows 0..6
+// matter). Only the stages a later stage input reads are evaluated.
+template <typename Tab, typename T, typename Put>
 __device__ __forceinline__ void stage_inputs(const T (&y)[kCarried],
                                              const Lane<T>& q, T beta,
                                              const Consts<T>& cst, Put put) {
-  T k[S][kCarried];
-  T yi[kCarried];
+  T k[Tab::S][kCarried];
   put(0, y);
-  rhs(y, k[0], q, beta);
-#pragma unroll
-  for (int i = 1; i < S; ++i) {
-    stage_input<T, S>(y, k, i, yi, cst);
-    put(i, yi);
-    if (i < S - 1) rhs(yi, k[i], q, beta);
-  }
+  if constexpr (feeds<Tab>(0)) rhs(y, k[0], q, beta);
+  static_for<Tab::S - 1>([&](auto M) {
+    constexpr int i = decltype(M)::value + 1;
+    if constexpr (live<Tab>(i)) {
+      T yi[kCarried];
+      stage_input<Tab, i>(y, k, yi, cst);
+      put(i, yi);
+      if constexpr (feeds<Tab>(i)) rhs(yi, k[i], q, beta);
+    }
+  });
 }
 
 // the contact matvec of a state's infectious pressure, as rhs() computes it
@@ -208,45 +216,49 @@ __device__ __forceinline__ void rhs_vjp(const T (&y)[kRhsRows], T lraw,
 }
 
 // Pull lam back through one substep whose stage inputs and their raw force
-// stage(i, Y_i, lraw_i) gives: lam becomes dL/d(substep start). Stage cotangents kappa_i = b_i lam +
-// sum_{j > i} a_ji mu_j, completed from the last stage; their rows 7..9
-// are b_i lam always (mu's are 0), so only rows 0..6 are kept.
-template <typename T, int S, typename Get>
+// stage(i, Y_i, lraw_i) gives: lam becomes dL/d(substep start). Stage
+// cotangents kappa_i = b_i lam + sum_{j > i} a_ji mu_j, completed from the
+// last stage; their rows 7..9 are b_i lam always (mu's are 0), so only rows
+// 0..6 are kept. A zero b_i seeds kappa_i with 0, a zero a_ji adds nothing,
+// and a dead stage (kappa_i = 0 by its pattern) is not transposed.
+template <typename Tab, typename T, typename Get>
 __device__ __forceinline__ void substep_vjp(Get stage, T (&lam)[kCarried],
                                             T (&dq)[kParams], T& dbeta,
                                             const Lane<T>& q, const Col<T>& mc,
                                             T beta, const Consts<T>& cst) {
-  T K[S][kRhsRows];
+  T K[Tab::S][kRhsRows];
+  static_for<Tab::S>([&](auto I) {
+    constexpr int i = decltype(I)::value;
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const T bi = cst.b[i];
-#pragma unroll
-    for (int c = 0; c < kRhsRows; ++c) K[i][c] = bi != T(0) ? bi * lam[c] : T(0);
-  }
-#pragma unroll
-  for (int i = S - 1; i >= 0; --i) {
-    T yi[kRhsRows], kap[kCarried], mu[kRhsRows], lraw;
-    stage(i, yi, lraw);
-    const T bi = cst.b[i];
-#pragma unroll
-    for (int c = 0; c < kRhsRows; ++c) kap[c] = K[i][c];
-#pragma unroll
-    for (int c = kRhsRows; c < kCarried; ++c)
-      kap[c] = bi != T(0) ? bi * lam[c] : T(0);
-    rhs_vjp(yi, lraw, kap, mu, dq, dbeta, q, mc, beta);
-#pragma unroll
-    for (int c = 0; c < kRhsRows; ++c) lam[c] += mu[c];
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      if (j < i) {
-        const T aij = cst.a[i][j];
-        if (aij != T(0)) {
-#pragma unroll
-          for (int c = 0; c < kRhsRows; ++c) K[j][c] += aij * mu[c];
-        }
-      }
+    for (int c = 0; c < kRhsRows; ++c) {
+      if constexpr (b_nz<Tab>(i)) K[i][c] = cst.b[i] * lam[c];
+      else K[i][c] = T(0);
     }
-  }
+  });
+  static_for<Tab::S, true>([&](auto I) {
+    constexpr int i = decltype(I)::value;
+    if constexpr (live<Tab>(i)) {
+      T yi[kRhsRows], kap[kCarried], mu[kRhsRows], lraw;
+      stage(i, yi, lraw);
+#pragma unroll
+      for (int c = 0; c < kRhsRows; ++c) kap[c] = K[i][c];
+#pragma unroll
+      for (int c = kRhsRows; c < kCarried; ++c) {
+        if constexpr (b_nz<Tab>(i)) kap[c] = cst.b[i] * lam[c];
+        else kap[c] = T(0);
+      }
+      rhs_vjp(yi, lraw, kap, mu, dq, dbeta, q, mc, beta);
+#pragma unroll
+      for (int c = 0; c < kRhsRows; ++c) lam[c] += mu[c];
+      static_for<i>([&](auto J) {
+        constexpr int j = decltype(J)::value;
+        if constexpr (a_nz<Tab>(i, j)) {
+#pragma unroll
+          for (int c = 0; c < kRhsRows; ++c) K[j][c] += cst.a[i][j] * mu[c];
+        }
+      });
+    }
+  });
 }
 
 __device__ __forceinline__ int run_of(int t, int n_runs, const int* run_start) {
@@ -318,15 +330,14 @@ __device__ __forceinline__ void fold_adjoint(T (&lam)[kCarried],
 // after every substep goes to `ends`. Lane groups past the last mirror it
 // and days past the last interval are computed and dropped, so that every
 // shuffle has a full warp.
-template <typename T, int S>
+template <typename T, typename Tab>
 __global__ void __launch_bounds__(kThreads)
 sepaihrd_adjoint_days_kernel(const T* __restrict__ agevec,
                              const T* __restrict__ scal,
                              const T* __restrict__ beff,
                              const T* __restrict__ ckpt, T* __restrict__ ends,
-                             int B, int substeps, int fsal, int n_runs,
-                             int n_intervals, int c_lo, int n_wave_chunks,
-                             const Consts<T> cst) {
+                             int B, int substeps, int n_runs, int n_intervals,
+                             int c_lo, int n_wave_chunks, const Consts<T> cst) {
   const long long gid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long groups = static_cast<long long>(B) * n_wave_chunks;
@@ -349,21 +360,22 @@ sepaihrd_adjoint_days_kernel(const T* __restrict__ agevec,
     const bool keep = active && t < n_intervals;
     const int r = run_of(t, n_runs, cst.run_start);
     T* dst = ends + end_slot(t, c_lo * kChunk, 0, substeps, lanes, lane);
-    advance_day<T, S>(y, q, beff[static_cast<size_t>(r) * B + chain], substeps,
-                      fsal, cst, [&](int sub, const T (&ye)[kCarried]) {
-                        if (!keep) return;
+    advance_day<Tab>(y, q, beff[static_cast<size_t>(r) * B + chain], substeps,
+                     cst, [&](int sub, const T (&ye)[kCarried]) {
+                       if (!keep) return;
 #pragma unroll
-                        for (int c = 0; c < kCarried; ++c)
-                          dst[(static_cast<size_t>(sub) * kCarried + c) * lanes] = ye[c];
-                      });
+                       for (int c = 0; c < kCarried; ++c)
+                         dst[(static_cast<size_t>(sub) * kCarried + c) * lanes] = ye[c];
+                     });
   }
 }
 
 // K3 stage "stages" (regime 1): the stage inputs of every substep and their
 // raw force (row 7: the 29 sweeps need not repeat its shuffles), one lane
 // group per (chain, day, substep), into ybuf at
-// (((t * substeps + sub) * S + i) * 8 + c) * 4B + chain * 4 + age.
-template <typename T, int S>
+// (((t * substeps + sub) * S + i) * 8 + c) * 4B + chain * 4 + age (a dead
+// stage's rows are not written; nothing reads them).
+template <typename T, typename Tab>
 __global__ void __launch_bounds__(kThreads)
 sepaihrd_adjoint_stages_kernel(const T* __restrict__ agevec,
                                const T* __restrict__ scal,
@@ -388,8 +400,8 @@ sepaihrd_adjoint_stages_kernel(const T* __restrict__ agevec,
 
   T y[kCarried];
   load_start(y, ends, ckpt, t, 0, sub, substeps, lanes, lane, age, chain, B);
-  T* dst = ybuf + (static_cast<size_t>(t) * substeps + sub) * S * kStageRows * lanes + lane;
-  stage_inputs<T, S>(y, q, beff[static_cast<size_t>(r) * B + chain], cst,
+  T* dst = ybuf + (static_cast<size_t>(t) * substeps + sub) * Tab::S * kStageRows * lanes + lane;
+  stage_inputs<Tab>(y, q, beff[static_cast<size_t>(r) * B + chain], cst,
                      [&](int i, const T (&yi)[kCarried]) {
                        T row[kStageRows];
 #pragma unroll
@@ -409,7 +421,7 @@ sepaihrd_adjoint_stages_kernel(const T* __restrict__ agevec,
 //        lambda (c * 4 + age), dagevec (28 + p * 4 + age), dscal (60 + p);
 //   segb ((chain * n_seg + chunk + run) * 29 + sweep: d(beta) of the days of
 //        `run` inside `chunk` (chunk + run numbers these segments in order).
-template <typename T, int S>
+template <typename T, typename Tab>
 __global__ void __launch_bounds__(kThreads)
 sepaihrd_adjoint_chunk_kernel(const T* __restrict__ agevec,
                               const T* __restrict__ scal,
@@ -425,7 +437,7 @@ sepaihrd_adjoint_chunk_kernel(const T* __restrict__ agevec,
                               const Consts<T> cst) {
   // one substep's stage rows, twice: the next substep's are fetched while
   // this one is transposed
-  constexpr int kVals = S * kStageRows * kAges;
+  constexpr int kVals = Tab::S * kStageRows * kAges;
   constexpr int kLoads = (kVals + kThreads - 1) / kThreads;
   __shared__ T ysh[2][kVals];
   const int chain = blockIdx.x / n_chunks;
@@ -494,7 +506,7 @@ sepaihrd_adjoint_chunk_kernel(const T* __restrict__ agevec,
       const bool more = sub > 0 || t > ch * kChunk;   // a substep is swept next
       if (more) fetch(sub > 0 ? t : t - 1, sub > 0 ? sub - 1 : substeps - 1, v);
       const T* const ys = ysh[buf];
-      substep_vjp<T, S>(
+      substep_vjp<Tab>(
           [&](int i, T (&yi)[kRhsRows], T& lraw) {
 #pragma unroll
             for (int c = 0; c < kRhsRows; ++c)
@@ -530,8 +542,8 @@ sepaihrd_adjoint_chunk_kernel(const T* __restrict__ agevec,
 // K3 stage "compose" (regime 1): one block per chain walks the chunks from
 // the last to the first. Thread o < 67 owns output row o of the chunk maps
 // (lambda rows first), thread 96 + r the d(beta) of run r; each adds its
-// row's particular entry and the 28 products with the entering lambda, in
-// float64 whatever T is.
+// row's particular entry and, from the second-last chunk on, the 28
+// products with the entering lambda, in float64 whatever T is.
 template <typename T>
 __global__ void __launch_bounds__(kComposeThreads)
 sepaihrd_adjoint_compose_kernel(const T* __restrict__ tm,
@@ -555,10 +567,14 @@ sepaihrd_adjoint_compose_kernel(const T* __restrict__ tm,
                cst.run_start[run] + cst.run_count[run] > ch * kChunk) {
       row = segb + (static_cast<size_t>(chain) * n_seg + ch + run) * kSweeps;
     }
+    // the last chunk has no entering lambda: its homogeneous columns are
+    // not read (they hold the chunk's Jacobian, which can overflow where
+    // the gradient does not, as on a stiff row)
     double v = 0.0;
     if (row != nullptr) {
       v = static_cast<double>(row[0]);
-      for (int j = 0; j < kSeam; ++j) v += static_cast<double>(row[1 + j]) * lam[j];
+      if (ch < n_chunks - 1)
+        for (int j = 0; j < kSeam; ++j) v += static_cast<double>(row[1 + j]) * lam[j];
     }
     __syncthreads();
     if (o < kSeam) lam[o] = v; else acc += v;
@@ -585,7 +601,7 @@ sepaihrd_adjoint_compose_kernel(const T* __restrict__ tm,
 // reaches chunk 0 and writes the outputs; between launches lambda's rows
 // 0..6, the parameter cotangents and the open run's d(beta) rest in `carry`
 // (slot * 4B + lane). Dynamic shared memory: S * 7 values a thread.
-template <typename T, int S>
+template <typename T, typename Tab>
 __global__ void __launch_bounds__(kThreads)
 sepaihrd_adjoint_sweep_kernel(const T* __restrict__ agevec,
                               const T* __restrict__ scal,
@@ -648,11 +664,11 @@ sepaihrd_adjoint_sweep_kernel(const T* __restrict__ agevec,
     for (int sub = substeps - 1; sub >= 0; --sub) {
       T y[kCarried];
       load_start(y, ends, ckpt, t, t0, sub, substeps, lanes, lane, age, chain, B);
-      stage_inputs<T, S>(y, q, beta_b, cst, [&](int i, const T (&yi)[kCarried]) {
+      stage_inputs<Tab>(y, q, beta_b, cst, [&](int i, const T (&yi)[kCarried]) {
 #pragma unroll
         for (int c = 0; c < kRhsRows; ++c) ysm[(i * kRhsRows + c) * nt] = yi[c];
       });
-      substep_vjp<T, S>(
+      substep_vjp<Tab>(
           [&](int i, T (&yi)[kRhsRows], T& lraw) {
 #pragma unroll
             for (int c = 0; c < kRhsRows; ++c) yi[c] = ysm[(i * kRhsRows + c) * nt];
@@ -749,7 +765,7 @@ inline int block_size(long long total, int sm_count) {
 // The sweep's stage inputs take more dynamic shared memory than a kernel
 // gets unasked (50 KB a block in f64 dopri5): ask once per instantiation
 // and device, not at every launch.
-template <typename T, int NS>
+template <typename T, typename Tab>
 cudaError_t allow_sweep_smem() {
   constexpr int kMaxDevices = 64;
   static bool allowed[kMaxDevices] = {};
@@ -758,9 +774,9 @@ cudaError_t allow_sweep_smem() {
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(
-      sepaihrd_adjoint_sweep_kernel<T, NS>,
+      sepaihrd_adjoint_sweep_kernel<T, Tab>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(static_cast<size_t>(NS) * kRhsRows * kThreads * sizeof(T)));
+      static_cast<int>(static_cast<size_t>(Tab::S) * kRhsRows * kThreads * sizeof(T)));
   if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
   return err;
 }
@@ -769,8 +785,8 @@ template <typename T>
 int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
                const T* valid, const T* ckpt, const T* g, T* dy0, T* dagevec,
                T* dscal, T* dbeff, T* scratch, long long scratch_len, int B,
-               int T_obs, int runup_offset, int substeps, int n_stages,
-               int fsal, const double* a_host, const double* b_host,
+               int T_obs, int runup_offset, int substeps, int tableau,
+               const double* a_host, const double* b_host,
                const double* M_host, int n_runs, const int* run_start,
                const int* run_count, int n_chunks, int regime, int wave_chunks,
                int sm_count, int* n_launched, void* stream) {
@@ -779,10 +795,11 @@ int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
   if (!check<T>(B, T_obs, runup_offset, substeps, n_runs, run_start, run_count,
                 n_chunks, &n_intervals) ||
       (regime != 1 && regime != 2) || wave_chunks < 1 || sm_count < 1 ||
-      !make_consts(c, n_stages, a_host, b_host, M_host, n_runs, run_start,
+      !make_consts(c, tableau, a_host, b_host, M_host, n_runs, run_start,
                    run_count)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int n_stages = tableau_stages(tableau);
   const ScratchPlan p = plan_scratch(regime, B, substeps, n_stages, n_intervals,
                                      n_runs, n_chunks, wave_chunks);
   if (scratch_len < p.total) return static_cast<int>(cudaErrorInvalidValue);
@@ -795,11 +812,11 @@ int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
   auto days = [&](int c_lo, int n_wave) -> int {
     const long long total = static_cast<long long>(kAges) * B * n_wave;
     const int block = block_size(total, sm_count);
-#define MMIDV1_LAUNCH(NS)                                                    \
-  sepaihrd_adjoint_days_kernel<T, NS><<<grid(total, block), block, 0, s>>>(  \
-      agevec, scal, beff, ckpt, ends, B, substeps, fsal, n_runs, n_intervals, \
-      c_lo, n_wave, c)
-    SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+#define MMIDV1_LAUNCH(TAB)                                                    \
+  sepaihrd_adjoint_days_kernel<T, TAB><<<grid(total, block), block, 0, s>>>(  \
+      agevec, scal, beff, ckpt, ends, B, substeps, n_runs, n_intervals, c_lo, \
+      n_wave, c)
+    SEPAIHRD_DISPATCH_TABLEAU(tableau, MMIDV1_LAUNCH)
 #undef MMIDV1_LAUNCH
     ++launched;
     return static_cast<int>(cudaGetLastError());
@@ -811,23 +828,23 @@ int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
       const long long total =
           static_cast<long long>(kAges) * B * n_intervals * substeps;
       const int block = block_size(total, sm_count);
-#define MMIDV1_LAUNCH(NS)                                                      \
-  sepaihrd_adjoint_stages_kernel<T, NS><<<grid(total, block), block, 0, s>>>(  \
-      agevec, scal, beff, ckpt, ends, scratch + p.ybuf, B, substeps, n_runs,   \
+#define MMIDV1_LAUNCH(TAB)                                                      \
+  sepaihrd_adjoint_stages_kernel<T, TAB><<<grid(total, block), block, 0, s>>>(  \
+      agevec, scal, beff, ckpt, ends, scratch + p.ybuf, B, substeps, n_runs,    \
       n_intervals, c)
-      SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+      SEPAIHRD_DISPATCH_TABLEAU(tableau, MMIDV1_LAUNCH)
 #undef MMIDV1_LAUNCH
       ++launched;
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     }
     {
       const unsigned blocks = static_cast<unsigned>(B) * n_chunks;
-#define MMIDV1_LAUNCH(NS)                                                     \
-  sepaihrd_adjoint_chunk_kernel<T, NS><<<blocks, kThreads, 0, s>>>(           \
+#define MMIDV1_LAUNCH(TAB)                                                    \
+  sepaihrd_adjoint_chunk_kernel<T, TAB><<<blocks, kThreads, 0, s>>>(          \
       agevec, scal, beff, obs, valid, g, ends, scratch + p.ybuf,              \
       scratch + p.tm, scratch + p.segb, B, T_obs, runup_offset, substeps,     \
       n_runs, n_intervals, n_chunks, c)
-      SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+      SEPAIHRD_DISPATCH_TABLEAU(tableau, MMIDV1_LAUNCH)
 #undef MMIDV1_LAUNCH
       ++launched;
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -844,16 +861,16 @@ int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
     for (int c_hi = n_chunks; c_hi > 0 && err == cudaSuccess; c_hi -= wave_chunks) {
       const int c_lo = c_hi > wave_chunks ? c_hi - wave_chunks : 0;
       if (int rc = days(c_lo, c_hi - c_lo)) return rc;
-#define MMIDV1_LAUNCH(NS)                                                     \
+#define MMIDV1_LAUNCH(TAB)                                                    \
   {                                                                           \
-    err = allow_sweep_smem<T, NS>();                                          \
+    err = allow_sweep_smem<T, TAB>();                                         \
     if (err != cudaSuccess) return static_cast<int>(err);                     \
-    sepaihrd_adjoint_sweep_kernel<T, NS><<<blocks, kThreads, smem, s>>>(      \
+    sepaihrd_adjoint_sweep_kernel<T, TAB><<<blocks, kThreads, smem, s>>>(     \
         agevec, scal, beff, obs, valid, ckpt, g, dy0, dagevec, dscal, dbeff,  \
         ends, scratch + p.carry, B, T_obs, runup_offset, substeps, n_runs,    \
         n_intervals, c_lo, c_hi, c_hi == n_chunks, c_lo == 0, c);             \
   }
-      SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+      SEPAIHRD_DISPATCH_TABLEAU(tableau, MMIDV1_LAUNCH)
 #undef MMIDV1_LAUNCH
       ++launched;
       err = cudaGetLastError();
@@ -867,35 +884,36 @@ int launch_bwd(const T* agevec, const T* scal, const T* beff, const T* obs,
 
 extern "C" {
 
-// K2. regime 1: split (few chains); 2: wide
+// K2. regime 1: split (few chains); 2: wide. tableau: the id of
+// sepaihrd_tableaus.cuh, as for K1.
 int sepaihrd_fwd_ckpt_f32(const float* y0, const float* agevec,
                           const float* scal, const float* beff,
                           const float* obs, const float* valid, float* out,
                           float* ckpt, int B, int T_obs, int runup_offset,
-                          int substeps, int n_stages, int fsal,
-                          const double* a_host, const double* b_host,
-                          const double* M_host, int n_runs,
-                          const int* run_start, const int* run_count,
-                          int n_chunks, int regime, void* stream) {
+                          int substeps, int tableau, const double* a_host,
+                          const double* b_host, const double* M_host,
+                          int n_runs, const int* run_start,
+                          const int* run_count, int n_chunks, int regime,
+                          void* stream) {
   return sepaihrd::launch_forward<float, true>(
       y0, agevec, scal, beff, obs, valid, out, ckpt, B, T_obs, runup_offset,
-      substeps, n_stages, fsal, a_host, b_host, M_host, n_runs, run_start,
-      run_count, n_chunks, regime, stream);
+      substeps, tableau, a_host, b_host, M_host, n_runs, run_start, run_count,
+      n_chunks, regime, stream);
 }
 
 int sepaihrd_fwd_ckpt_f64(const double* y0, const double* agevec,
                           const double* scal, const double* beff,
                           const double* obs, const double* valid, double* out,
                           double* ckpt, int B, int T_obs, int runup_offset,
-                          int substeps, int n_stages, int fsal,
-                          const double* a_host, const double* b_host,
-                          const double* M_host, int n_runs,
-                          const int* run_start, const int* run_count,
-                          int n_chunks, int regime, void* stream) {
+                          int substeps, int tableau, const double* a_host,
+                          const double* b_host, const double* M_host,
+                          int n_runs, const int* run_start,
+                          const int* run_count, int n_chunks, int regime,
+                          void* stream) {
   return sepaihrd::launch_forward<double, true>(
       y0, agevec, scal, beff, obs, valid, out, ckpt, B, T_obs, runup_offset,
-      substeps, n_stages, fsal, a_host, b_host, M_host, n_runs, run_start,
-      run_count, n_chunks, regime, stream);
+      substeps, tableau, a_host, b_host, M_host, n_runs, run_start, run_count,
+      n_chunks, regime, stream);
 }
 
 // K3. regime 1: days, stages, chunk, compose over all chunks at once;
@@ -908,7 +926,7 @@ int sepaihrd_adjoint_f32(const float* agevec, const float* scal,
                          float* dy0, float* dagevec, float* dscal,
                          float* dbeff, float* scratch, long long scratch_len,
                          int B, int T_obs, int runup_offset, int substeps,
-                         int n_stages, int fsal, const double* a_host,
+                         int tableau, const double* a_host,
                          const double* b_host, const double* M_host,
                          int n_runs, const int* run_start,
                          const int* run_count, int n_chunks, int regime,
@@ -916,9 +934,9 @@ int sepaihrd_adjoint_f32(const float* agevec, const float* scal,
                          void* stream) {
   return launch_bwd<float>(agevec, scal, beff, obs, valid, ckpt, g, dy0,
                            dagevec, dscal, dbeff, scratch, scratch_len, B,
-                           T_obs, runup_offset, substeps, n_stages, fsal,
-                           a_host, b_host, M_host, n_runs, run_start,
-                           run_count, n_chunks, regime, wave_chunks, sm_count,
+                           T_obs, runup_offset, substeps, tableau, a_host,
+                           b_host, M_host, n_runs, run_start, run_count,
+                           n_chunks, regime, wave_chunks, sm_count,
                            n_launched, stream);
 }
 
@@ -928,17 +946,17 @@ int sepaihrd_adjoint_f64(const double* agevec, const double* scal,
                          const double* g, double* dy0, double* dagevec,
                          double* dscal, double* dbeff, double* scratch,
                          long long scratch_len, int B, int T_obs,
-                         int runup_offset, int substeps, int n_stages,
-                         int fsal, const double* a_host, const double* b_host,
+                         int runup_offset, int substeps, int tableau,
+                         const double* a_host, const double* b_host,
                          const double* M_host, int n_runs,
                          const int* run_start, const int* run_count,
                          int n_chunks, int regime, int wave_chunks,
                          int sm_count, int* n_launched, void* stream) {
   return launch_bwd<double>(agevec, scal, beff, obs, valid, ckpt, g, dy0,
                             dagevec, dscal, dbeff, scratch, scratch_len, B,
-                            T_obs, runup_offset, substeps, n_stages, fsal,
-                            a_host, b_host, M_host, n_runs, run_start,
-                            run_count, n_chunks, regime, wave_chunks, sm_count,
+                            T_obs, runup_offset, substeps, tableau, a_host,
+                            b_host, M_host, n_runs, run_start, run_count,
+                            n_chunks, regime, wave_chunks, sm_count,
                             n_launched, stream);
 }
 

@@ -21,6 +21,16 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+#include <utility>
+
+// One type per tableau (TabRk4, TabCashKarp, TabRkf45, TabDopri5,
+// TabFehlberg78): its stage count S, fsal, and the zero pattern of a and b
+// (a_row(i), b_bits). Generated from ode/tableaus.py into the build
+// directory at every build (ops/_build.py), so it is no second copy of the
+// tables; the coefficient values reach the kernels at run time in Consts.
+#include "sepaihrd_tableaus.cuh"
+
 namespace sepaihrd {
 
 constexpr int kMaxStages = 13;   // fehlberg78
@@ -48,11 +58,22 @@ struct Lane {
   T m0, m1, m2, m3;                                 // contact row of this age
 };
 
-// Consts from the host arrays; false if a size is out of range.
+// The stage count of the tableau with this id; 0 for an unknown id.
+inline int tableau_stages(int tableau) {
+#define SEPAIHRD_STAGES_CASE(I, TAB, A) \
+  if (tableau == I) return TAB::S;
+  SEPAIHRD_TABLEAUS(SEPAIHRD_STAGES_CASE, 0)
+#undef SEPAIHRD_STAGES_CASE
+  return 0;
+}
+
+// Consts from the host arrays (a: S x S, b: S of the tableau with this id);
+// false for an unknown tableau or a size out of range.
 template <typename T>
-bool make_consts(Consts<T>& c, int n_stages, const double* a_host,
+bool make_consts(Consts<T>& c, int tableau, const double* a_host,
                  const double* b_host, const double* M_host, int n_runs,
                  const int* run_start, const int* run_count) {
+  const int n_stages = tableau_stages(tableau);
   if (n_stages < 1 || n_stages > kMaxStages || n_runs < 1 || n_runs > kMaxRuns)
     return false;
   c = {};
@@ -104,6 +125,24 @@ __device__ __forceinline__ Lane<T> load_lane(const T* __restrict__ agevec,
 template <typename T>
 __device__ __forceinline__ T relu(T x) { return x < T(0) ? T(0) : x; }
 
+// Rounded operations that nvcc never fuses (mul_rn, add_rn, sub_rn) and an
+// explicit fused multiply-add (fma_rn). rhs_down and the Poisson term are
+// written with them, so which products fuse into which sums is fixed by
+// the source. Left to nvcc's contraction, the rows behind I fused
+// differently in the split regime's consumer warp and in the wide regime's
+// thread, once the tableau's zero pattern left some of their stage
+// derivatives dead, and the two regimes no longer agreed to the bit. rhs_up
+// and the axpys are left to nvcc: their rows agree, and written out they
+// made the split regime's float32 producer up to 51 % slower on an H100.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
 // the lane's share of sum_j M_ij v_j: four reads inside the lane group
 template <typename T>
 __device__ __forceinline__ T group_matvec(T v, T m0, T m1, T m2, T m3) {
@@ -149,15 +188,14 @@ __device__ __forceinline__ void rhs_up(const T* u, T* du, const Lane<T>& q,
 template <typename T>
 __device__ __forceinline__ void rhs_down(T I, const T* z, T* dz,
                                          const Lane<T>& q) {
-  const T fIH = q.h * I;
-  const T fIDc = q.dcomm * I;
-  const T fHICU = q.icu * z[0];
-  const T dHrow = q.dH * z[0];
-  const T dICUrow = q.dICU * z[1];
+  const T fIH = mul_rn(q.h, I);
+  const T fHICU = mul_rn(q.icu, z[0]);
+  const T dHrow = mul_rn(q.dH, z[0]);
+  const T dICUrow = mul_rn(q.dICU, z[1]);
 
-  dz[0] = fIH - (q.gH * z[0] + dHrow + fHICU);
-  dz[1] = fHICU - (q.gICU * z[1] + dICUrow);
-  dz[2] = dHrow + dICUrow + fIDc;
+  dz[0] = sub_rn(fIH, add_rn(fma_rn(q.gH, z[0], dHrow), fHICU));
+  dz[1] = sub_rn(fHICU, fma_rn(q.gICU, z[1], dICUrow));
+  dz[2] = fma_rn(q.dcomm, I, add_rn(dHrow, dICUrow));   // + fIDc
   dz[3] = fIH;
   dz[4] = fHICU;
 }
@@ -190,109 +228,161 @@ __device__ __forceinline__ T poisson_row(const T* __restrict__ obs,
   for (int s = 0; s < 3; ++s) {
     const T o = __ldg(obs + base + s * kAges);
     const T v = __ldg(valid + base + s * kAges);
-    term += o * log(incs[s]) - v * incs[s];
+    term = add_rn(term, fma_rn(o, log(incs[s]), -mul_rn(v, incs[s])));
   }
   return term;
 }
 
-// y += a * k over R rows. With SKIP a zero coefficient is skipped, as the
-// plain version skips it, so a non-finite k behind a zero poisons nothing
-// (K3's kernels). Without, the FMA runs whatever a is (the forward kernels):
-// fma(0, k, y) is y for every finite k, and no branch or predicate stands
-// between the stages. A non-finite k behind a zero then turns y NaN where
-// SKIP would have passed it by. Mostly such a chain ends NaN either way, one
-// stage later; the exception is a stage that is discarded: the last stage
-// of a day's last substep under a tableau whose last b is 0 (dopri5's k[6])
-// is never carried, since the next day starts fresh, so a non-finite k there
-// (reachable only near overflow) gives NaN here and a finite value in the
-// plain version and in K3's `days` kernel, which re-integrates with SKIP on.
-// The two rules also differ in the sign of zero: fma(0, k, -0) is +0. When
-// K3's flag is flipped, flip it for `days` in the same change, so that K2's
-// checkpoints and K3's re-integration keep one rule.
-template <typename T, int R, bool SKIP>
-__device__ __forceinline__ void axpy_rows(T (&y)[R], T a, const T (&k)[R]) {
-  if (!SKIP || a != T(0)) {
-#pragma unroll
-    for (int c = 0; c < R; ++c) y[c] = y[c] + a * k[c];
-  }
+// ---- the tableau's zero pattern, at compile time ----------------------------
+//
+// The rule is the Pallas kernels' (mmidv1_tpu/ops/sepaihrd_pallas.py, the
+// `if a_tab[i, j] != 0.0` of make_interval_fn, and the jax.vjp of its
+// substep in mmidv1_tpu/ops/sepaihrd_adjoint.py) and the plain versions':
+// a zero coefficient contributes nothing. Here the zero pattern is part of
+// the tableau's type, so a zero a_ij or b_i emits no instruction at all: no
+// FMA, no compare, no predicate, and a stage is one straight run of
+// instructions. So a non-finite k behind a zero (reachable near overflow:
+// dopri5's discarded k[6] on a day's last substep) poisons nothing, in K1,
+// K2 and K3 alike, and K2's checkpoints and K3's re-integration follow one
+// rule. A stage that nothing reads (no b_i and no a_ji, j > i) is dead: it
+// is neither evaluated (unless FSAL carries it) nor transposed, as
+// jax.vjp gives it a symbolic zero cotangent. The values h*a_ij and h*b_i
+// stay run-time constants (Consts), rounded on the host as the Pallas
+// kernel rounds them.
+
+template <typename Tab>
+__host__ __device__ constexpr bool a_nz(int i, int j) {
+  return (Tab::a_row(i) >> j) & 1u;
 }
 
-// the stage inputs yi = y + sum_{j<i} a_ij k_j over R rows
-template <typename T, int S, int R, bool SKIP = true>
+template <typename Tab>
+__host__ __device__ constexpr bool b_nz(int i) {
+  return (Tab::b_bits >> i) & 1u;
+}
+
+// stage i's derivative is read by a later stage's input
+template <typename Tab>
+__host__ __device__ constexpr bool feeds(int i) {
+  for (int j = i + 1; j < Tab::S; ++j)
+    if (a_nz<Tab>(j, i)) return true;
+  return false;
+}
+
+// stage i's derivative is read at all (by a later stage or the update)
+template <typename Tab>
+__host__ __device__ constexpr bool live(int i) {
+  return b_nz<Tab>(i) || feeds<Tab>(i);
+}
+
+// stage i is evaluated by a forward substep: live, or carried by FSAL
+template <typename Tab>
+__host__ __device__ constexpr bool evaluated(int i) {
+  return live<Tab>(i) || (Tab::fsal && i == Tab::S - 1);
+}
+
+// f(integral_constant<int, I>) for I = 0 .. N-1 in order (DOWN: N-1 .. 0):
+// the index is a constant expression in f, so `if constexpr` on the zero
+// pattern drops a zero entry's code whatever the unroller does.
+template <bool DOWN, int N, typename F, int... Is>
+__device__ __forceinline__ void static_for_seq(F& f,
+                                               std::integer_sequence<int, Is...>) {
+  (f(std::integral_constant<int, DOWN ? N - 1 - Is : Is>{}), ...);
+}
+
+template <int N, bool DOWN = false, typename F>
+__device__ __forceinline__ void static_for(F f) {
+  static_for_seq<DOWN, N>(f, std::make_integer_sequence<int, N>{});
+}
+
+// y += a * k over R rows
+template <typename T, int R>
+__device__ __forceinline__ void axpy_rows(T (&y)[R], T a, const T (&k)[R]) {
+#pragma unroll
+  for (int c = 0; c < R; ++c) y[c] = y[c] + a * k[c];
+}
+
+// the stage input of stage I, yi = y + sum_{j<I, a_Ij != 0} a_Ij k_j, over
+// R rows
+template <typename Tab, int I, typename T, int R>
 __device__ __forceinline__ void stage_input(const T (&y)[R],
-                                            const T (&k)[S][R], int i,
+                                            const T (&k)[Tab::S][R],
                                             T (&yi)[R], const Consts<T>& cst) {
 #pragma unroll
   for (int c = 0; c < R; ++c) yi[c] = y[c];
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    if (j < i) axpy_rows<T, R, SKIP>(yi, cst.a[i][j], k[j]);
-  }
+  static_for<I>([&](auto J) {
+    constexpr int j = decltype(J)::value;
+    if constexpr (a_nz<Tab>(I, j)) axpy_rows(yi, cst.a[I][j], k[j]);
+  });
 }
 
 // One RK step of R rows in place. `stage(i, yi, ki)` writes the derivative
 // ki at the stage input yi. The first stage is evaluated when `fresh`, else
 // it is the last stage of the step before (FSAL), which k still holds.
-template <typename T, int S, int R, bool SKIP = true, typename Stage>
-__device__ __forceinline__ void rk_substep(T (&y)[R], T (&k)[S][R], bool fresh,
-                                           const Consts<T>& cst, Stage stage) {
-  T yi[R];
+template <typename Tab, typename T, int R, typename Stage>
+__device__ __forceinline__ void rk_substep(T (&y)[R], T (&k)[Tab::S][R],
+                                           bool fresh, const Consts<T>& cst,
+                                           Stage stage) {
   if (fresh) {
     stage(0, y, k[0]);
   } else {
 #pragma unroll
-    for (int c = 0; c < R; ++c) k[0][c] = k[S - 1][c];
+    for (int c = 0; c < R; ++c) k[0][c] = k[Tab::S - 1][c];
   }
-#pragma unroll
-  for (int i = 1; i < S; ++i) {
-    stage_input<T, S, R, SKIP>(y, k, i, yi, cst);
-    stage(i, yi, k[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < S; ++i) axpy_rows<T, R, SKIP>(y, cst.b[i], k[i]);
+  static_for<Tab::S - 1>([&](auto M) {
+    constexpr int i = decltype(M)::value + 1;
+    if constexpr (evaluated<Tab>(i)) {
+      T yi[R];
+      stage_input<Tab, i>(y, k, yi, cst);
+      stage(i, yi, k[i]);
+    }
+  });
+  static_for<Tab::S>([&](auto I) {
+    constexpr int i = decltype(I)::value;
+    if constexpr (b_nz<Tab>(i)) axpy_rows(y, cst.b[i], k[i]);
+  });
 }
 
 // One daily interval in place: D/CumH/CumICU reset to 0 (the day-end value
 // is then the day's incidence), then `substeps` RK steps of h = 1/substeps
 // with beta frozen; FSAL tableaus carry the last stage into the next substep.
-// `after_substep(sub, y)` sees the state after each substep. SKIP as in
-// axpy_rows.
-template <typename T, int S, bool SKIP = true, typename Hook>
+// `after_substep(sub, y)` sees the state after each substep.
+template <typename Tab, typename T, typename Hook>
 __device__ __forceinline__ void advance_day(T (&y)[kCarried], const Lane<T>& q,
-                                            T beta, int substeps, int fsal,
+                                            T beta, int substeps,
                                             const Consts<T>& cst,
                                             Hook after_substep) {
-  T k[S][kCarried];
+  T k[Tab::S][kCarried];
   y[7] = T(0);
   y[8] = T(0);
   y[9] = T(0);
   for (int sub = 0; sub < substeps; ++sub) {
-    rk_substep<T, S, kCarried, SKIP>(
-        y, k, sub == 0 || !fsal, cst,
-        [&](int, const T (&yi)[kCarried], T (&ki)[kCarried]) {
-          rhs(yi, ki, q, beta);
-        });
+    rk_substep<Tab>(y, k, sub == 0 || !Tab::fsal, cst,
+                    [&](int, const T (&yi)[kCarried], T (&ki)[kCarried]) {
+                      rhs(yi, ki, q, beta);
+                    });
     after_substep(sub, y);
   }
 }
 
-template <typename T, int S, bool SKIP = true>
+template <typename Tab, typename T>
 __device__ __forceinline__ void advance_day(T (&y)[kCarried], const Lane<T>& q,
-                                            T beta, int substeps, int fsal,
+                                            T beta, int substeps,
                                             const Consts<T>& cst) {
-  advance_day<T, S, SKIP>(y, q, beta, substeps, fsal, cst,
-                          [](int, const T (&)[kCarried]) {});
+  advance_day<Tab>(y, q, beta, substeps, cst,
+                   [](int, const T (&)[kCarried]) {});
 }
 
-// Launch a kernel templated on the stage count for the tableaus the port
-// ships: rk4 (4), cash_karp and rkf45 (6), dopri5 (7), fehlberg78 (13).
-#define SEPAIHRD_DISPATCH_STAGES(n_stages, LAUNCH)          \
-  switch (n_stages) {                                       \
-    case 4: LAUNCH(4); break;                               \
-    case 6: LAUNCH(6); break;                               \
-    case 7: LAUNCH(7); break;                               \
-    case 13: LAUNCH(13); break;                             \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
+// Launch a kernel templated on the tableau's type for the tableau id of the
+// C interface: LAUNCH(TabX) in the case of TabX's id, and
+// cudaErrorInvalidValue from the enclosing function for an unknown id.
+#define SEPAIHRD_TABLEAU_CASE(I, TAB, LAUNCH) \
+  case I:                                     \
+    LAUNCH(TAB);                              \
+    break;
+#define SEPAIHRD_DISPATCH_TABLEAU(tableau, LAUNCH)             \
+  switch (tableau) {                                           \
+    SEPAIHRD_TABLEAUS(SEPAIHRD_TABLEAU_CASE, LAUNCH)           \
+    default: return static_cast<int>(cudaErrorInvalidValue);   \
   }
 
 }  // namespace sepaihrd

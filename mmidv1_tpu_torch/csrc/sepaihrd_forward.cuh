@@ -9,7 +9,8 @@
 // (K2). Per chain:
 //   - per daily interval: D/CumH/CumICU reset to 0, `substeps` RK steps of
 //     h = 1/substeps with beta*kappa*scaling frozen per static schedule run
-//     (any tableau whose coefficients the caller passes, FSAL honoured);
+//     (rk4, cash_karp, rkf45, dopri5 or fehlberg78, each its own
+//     instantiation; FSAL honoured);
 //   - incidence max(day value, 0) + 1e-10 for deaths, hospital and ICU
 //     admissions; term = sum over streams and ages of
 //     valid * (obs * log(inc) - inc), Kahan-summed over the observed days;
@@ -64,14 +65,14 @@
 //
 // What the design does about the chain, in both regimes: nothing stands
 // between a stage and the next but the chain itself. The tableau's zero
-// coefficients are not tested for (rk_substep's SKIP off): a test of each
-// entry is a branch every few FMAs (30 a dopri5 substep), which cuts a stage
-// into blocks the scheduler cannot move instructions across, or with few
-// rows a predicate and a register move per row, more instructions than the
-// axpys themselves; fma(0, k, y) is y exactly for finite k, and the three
-// zeros of dopri5 cost 3 FMAs a row and substep. A stage is then one
-// straight run of instructions in which the chain's latencies hide most of
-// the instruction stream.
+// pattern is a type (sepaihrd_common.cuh): a zero coefficient emits no
+// instruction, so there is no test of an entry at run time (a branch every
+// few FMAs, which cuts a stage into blocks the scheduler cannot move
+// instructions across, or a predicate and a register move a row) and no
+// FMA by zero either (dopri5's three zeros, fehlberg78's 29 of 91). A stage
+// is one straight run of instructions in which the chain's latencies hide
+// most of the instruction stream, and the kernels skip a zero entry as the
+// Pallas kernel and the plain version do.
 //
 // Two regimes, picked by the wrappers from the chain count and the card's SMs
 // (`choose_forward_regime`; the timed crossover is the same in both types):
@@ -100,19 +101,23 @@
 //          chains spread over 8 SMs, and up to two blocks an SM every warp
 //          has a scheduler to itself. Every row is computed by the same
 //          operations in the same order as in the wide regime (rhs_up and
-//          rhs_down are the halves of its rhs), so the two agree to the bit.
-// In both, the stage count is a template parameter so the stage loops unroll
-// and the stage vectors stay in registers; coefficients, contact matrix and
+//          rhs_down are the halves of its rhs, and in the rows behind I
+//          which product fuses into which sum is written out in
+//          sepaihrd_common.cuh, not left to nvcc's contraction), so the two
+//          agree to the bit.
+// In both, the tableau's type is a template parameter so the stage loops
+// unroll and the stage vectors stay in registers; coefficients, contact matrix and
 // schedule ride in the kernel's parameter space (constant bank); chains sit
 // last in every input so neighbouring lanes read neighbouring addresses;
 // lane groups past the last chain mirror it, so every shuffle has a full
 // warp, and store nothing.
 //
 // Numerics: built without --use_fast_math; `log` is the accurate log. nvcc
-// contracts a*b+c into FMA, so the kernels and their plain PyTorch version
-// differ by rounding only. The Kahan compensation has no multiply, so
-// contraction cannot fold it away, and nvcc does not reassociate floating
-// point adds without fast-math.
+// contracts rhs_up's and the axpys' a*b+c into FMAs; rhs_down and the
+// Poisson term say which products fuse (mul_rn / add_rn / fma_rn). So the kernels
+// and their plain PyTorch version, which fuses none, differ by rounding
+// only. The Kahan compensation has no multiply, and nvcc does not
+// reassociate floating point adds without fast-math.
 
 #pragma once
 
@@ -169,7 +174,7 @@ __device__ __forceinline__ int state_row(int c) { return c < 7 ? c : c + 1; }
 
 // ---- the wide regime -------------------------------------------------------
 
-template <typename T, int S, bool CKPT>
+template <typename T, typename Tab, bool CKPT>
 __global__ void __launch_bounds__(kThreads)
 sepaihrd_forward_wide_kernel(const T* __restrict__ y0,
                              const T* __restrict__ agevec,
@@ -178,8 +183,8 @@ sepaihrd_forward_wide_kernel(const T* __restrict__ y0,
                              const T* __restrict__ obs,
                              const T* __restrict__ valid, T* __restrict__ out,
                              T* __restrict__ ckpt, int B, int T_obs,
-                             int runup_offset, int substeps, int fsal,
-                             int n_runs, const Consts<T> cst) {
+                             int runup_offset, int substeps, int n_runs,
+                             const Consts<T> cst) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int age = tid & (kAges - 1);
   const bool active = (tid >> 2) < B;
@@ -203,7 +208,7 @@ sepaihrd_forward_wide_kernel(const T* __restrict__ y0,
 #pragma unroll
         for (int c = 0; c < kCarried; ++c) dst[c * AB] = y[c];
       }
-      advance_day<T, S, false>(y, q, beta, substeps, fsal, cst);
+      advance_day<Tab>(y, q, beta, substeps, cst);
       fold_day(f, obs, valid, t, runup_offset, T_obs, age, y[7], y[8], y[9]);
     }
   }
@@ -246,7 +251,7 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 // for lane the same (chain, age). Its shared memory is static: kRing x (full,
 // empty) mbarriers and a ring of kRing slots x S values x 32 lanes, 13.4 KB
 // at most (fehlberg78 in float64), whatever `substeps` is.
-template <typename T, int S, bool CKPT>
+template <typename T, typename Tab, bool CKPT>
 __global__ void __launch_bounds__(2 * kWarp)
 sepaihrd_forward_split_kernel(const T* __restrict__ y0,
                               const T* __restrict__ agevec,
@@ -255,8 +260,9 @@ sepaihrd_forward_split_kernel(const T* __restrict__ y0,
                               const T* __restrict__ obs,
                               const T* __restrict__ valid, T* __restrict__ out,
                               T* __restrict__ ckpt, int B, int T_obs,
-                              int runup_offset, int substeps, int fsal,
-                              int n_runs, const Consts<T> cst) {
+                              int runup_offset, int substeps, int n_runs,
+                              const Consts<T> cst) {
+  constexpr int S = Tab::S;
   __shared__ uint64_t bars[kRing * 2];
   __shared__ T ring_slots[kRing * S * kWarp];
   const int lane = threadIdx.x % kWarp;
@@ -297,11 +303,11 @@ sepaihrd_forward_split_kernel(const T* __restrict__ y0,
           const unsigned slot = n % kRing;
           mbar_wait(full0 + 16 * slot + 8, ((n / kRing) & 1) ^ 1);
           T* const dst = ring + slot * S * kWarp;
-          rk_substep<T, S, kUp, false>(u, k, sub == 0 || !fsal, cst,
-                                [&](int i, const T (&ui)[kUp], T (&ki)[kUp]) {
-                                  dst[i * kWarp] = ui[4];
-                                  rhs_up(ui, ki, q, beta);
-                                });
+          rk_substep<Tab>(u, k, sub == 0 || !Tab::fsal, cst,
+                          [&](int i, const T (&ui)[kUp], T (&ki)[kUp]) {
+                            dst[i * kWarp] = ui[4];
+                            rhs_up(ui, ki, q, beta);
+                          });
           __syncwarp();
           if (lane == 0) mbar_arrive(full0 + 16 * slot);
         }
@@ -329,10 +335,10 @@ sepaihrd_forward_split_kernel(const T* __restrict__ y0,
         const unsigned slot = n % kRing;
         mbar_wait(full0 + 16 * slot, (n / kRing) & 1);
         const T* const src = ring + slot * S * kWarp;
-        rk_substep<T, S, kDown, false>(z, k, sub == 0 || !fsal, cst,
-                                [&](int i, const T (&zi)[kDown], T (&ki)[kDown]) {
-                                  rhs_down(src[i * kWarp], zi, ki, q);
-                                });
+        rk_substep<Tab>(z, k, sub == 0 || !Tab::fsal, cst,
+                        [&](int i, const T (&zi)[kDown], T (&ki)[kDown]) {
+                          rhs_down(src[i * kWarp], zi, ki, q);
+                        });
         __syncwarp();
         if (lane == 0) mbar_arrive(full0 + 16 * slot + 8);
       }
@@ -344,20 +350,20 @@ sepaihrd_forward_split_kernel(const T* __restrict__ y0,
 
 // ---- launch ----------------------------------------------------------------
 
-// K1 (CKPT false, ckpt unused) or K2 in `regime`. cudaErrorInvalidValue for
-// what does not fit.
+// K1 (CKPT false, ckpt unused) or K2 in `regime`, for the tableau with id
+// `tableau`. cudaErrorInvalidValue for what does not fit.
 template <typename T, bool CKPT>
 int launch_forward(const T* y0, const T* agevec, const T* scal, const T* beff,
                    const T* obs, const T* valid, T* out, T* ckpt, int B,
-                   int T_obs, int runup_offset, int substeps, int n_stages,
-                   int fsal, const double* a_host, const double* b_host,
+                   int T_obs, int runup_offset, int substeps, int tableau,
+                   const double* a_host, const double* b_host,
                    const double* M_host, int n_runs, const int* run_start,
                    const int* run_count, int n_chunks, int regime,
                    void* stream) {
   Consts<T> c;
   if (B < 1 || T_obs < 1 || substeps < 1 || runup_offset < 0 ||
       (regime != kSplit && regime != kWide) ||
-      !make_consts(c, n_stages, a_host, b_host, M_host, n_runs, run_start,
+      !make_consts(c, tableau, a_host, b_host, M_host, n_runs, run_start,
                    run_count)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -373,19 +379,19 @@ int launch_forward(const T* y0, const T* agevec, const T* scal, const T* beff,
   const long long lanes = static_cast<long long>(kAges) * B;
   if (regime == kWide) {
     const int blocks = static_cast<int>((lanes + kThreads - 1) / kThreads);
-#define MMIDV1_LAUNCH(NS)                                                     \
-  sepaihrd_forward_wide_kernel<T, NS, CKPT><<<blocks, kThreads, 0, s>>>(      \
+#define MMIDV1_LAUNCH(TAB)                                                    \
+  sepaihrd_forward_wide_kernel<T, TAB, CKPT><<<blocks, kThreads, 0, s>>>(     \
       y0, agevec, scal, beff, obs, valid, out, ckpt, B, T_obs, runup_offset,  \
-      substeps, fsal, n_runs, c)
-    SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+      substeps, n_runs, c)
+    SEPAIHRD_DISPATCH_TABLEAU(tableau, MMIDV1_LAUNCH)
 #undef MMIDV1_LAUNCH
   } else {
     const int blocks = static_cast<int>((lanes + kWarp - 1) / kWarp);
-#define MMIDV1_LAUNCH(NS)                                                     \
-  sepaihrd_forward_split_kernel<T, NS, CKPT><<<blocks, 2 * kWarp, 0, s>>>(    \
+#define MMIDV1_LAUNCH(TAB)                                                    \
+  sepaihrd_forward_split_kernel<T, TAB, CKPT><<<blocks, 2 * kWarp, 0, s>>>(   \
       y0, agevec, scal, beff, obs, valid, out, ckpt, B, T_obs, runup_offset,  \
-      substeps, fsal, n_runs, c)
-    SEPAIHRD_DISPATCH_STAGES(n_stages, MMIDV1_LAUNCH)
+      substeps, n_runs, c)
+    SEPAIHRD_DISPATCH_TABLEAU(tableau, MMIDV1_LAUNCH)
 #undef MMIDV1_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());

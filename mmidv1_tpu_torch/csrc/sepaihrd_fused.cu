@@ -15,32 +15,33 @@
 
 extern "C" {
 
-// regime 1: split (few chains); 2: wide
+// regime 1: split (few chains); 2: wide. tableau: the id of
+// sepaihrd_tableaus.cuh (ops/_build.py KERNEL_TABLEAUS), a_host (S x S) and
+// b_host (S) its coefficients times h.
 int sepaihrd_fused_f32(const float* y0, const float* agevec, const float* scal,
                        const float* beff, const float* obs, const float* valid,
                        float* out, int B, int T_obs, int runup_offset,
-                       int substeps, int n_stages, int fsal,
-                       const double* a_host, const double* b_host,
-                       const double* M_host, int n_runs, const int* run_start,
-                       const int* run_count, int regime, void* stream) {
+                       int substeps, int tableau, const double* a_host,
+                       const double* b_host, const double* M_host, int n_runs,
+                       const int* run_start, const int* run_count, int regime,
+                       void* stream) {
   return sepaihrd::launch_forward<float, false>(
       y0, agevec, scal, beff, obs, valid, out, nullptr, B, T_obs, runup_offset,
-      substeps, n_stages, fsal, a_host, b_host, M_host, n_runs, run_start,
-      run_count, 0, regime, stream);
+      substeps, tableau, a_host, b_host, M_host, n_runs, run_start, run_count,
+      0, regime, stream);
 }
 
 int sepaihrd_fused_f64(const double* y0, const double* agevec,
                        const double* scal, const double* beff,
                        const double* obs, const double* valid, double* out,
                        int B, int T_obs, int runup_offset, int substeps,
-                       int n_stages, int fsal, const double* a_host,
-                       const double* b_host, const double* M_host, int n_runs,
-                       const int* run_start, const int* run_count, int regime,
-                       void* stream) {
+                       int tableau, const double* a_host, const double* b_host,
+                       const double* M_host, int n_runs, const int* run_start,
+                       const int* run_count, int regime, void* stream) {
   return sepaihrd::launch_forward<double, false>(
       y0, agevec, scal, beff, obs, valid, out, nullptr, B, T_obs, runup_offset,
-      substeps, n_stages, fsal, a_host, b_host, M_host, n_runs, run_start,
-      run_count, 0, regime, stream);
+      substeps, tableau, a_host, b_host, M_host, n_runs, run_start, run_count,
+      0, regime, stream);
 }
 
 const char* sepaihrd_fused_error_string(int code) {

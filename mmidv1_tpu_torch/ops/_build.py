@@ -2,10 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>_<hash>.so`` inside the package
-(a directory ``.gitignore`` lists). The hash covers the source, every header
-of ``csrc/`` (``*.cuh``, which the sources include) and the flags, so an
-edited source or header is rebuilt at its next use and an unchanged one is
-not.
+(a directory ``.gitignore`` lists). One header is generated rather than
+written: ``build/gen/sepaihrd_tableaus.cuh`` (:func:`tableau_header`), the
+zero pattern of every tableau of :data:`KERNEL_TABLEAUS`, read from
+``ode/tableaus.py`` at each build, so the kernels hold no second copy of the
+tables. The hash covers the source, every header of ``csrc/`` (``*.cuh``,
+which the sources include), the generated header and the flags, so an
+edited source, header or tableau is rebuilt at its next use and an
+unchanged one is not.
 Sources are compiled in parallel, one ``nvcc`` process each. Nothing is
 built when this module is imported: the first kernel launch builds.
 """
@@ -21,12 +25,20 @@ import threading
 import time
 from typing import Dict, Sequence
 
+from ..ode.tableaus import get_tableau
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
+GEN_DIR = os.path.join(BUILD_DIR, "gen")
 # no --use_fast_math: the objective needs the accurate log and IEEE division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# The tableaus the SEPAIHRD kernels are built for; a tableau's id in the
+# kernels' C interface is its index here.
+KERNEL_TABLEAUS = ("rk4", "cash_karp", "rkf45", "dopri5", "fehlberg78")
+TABLEAU_HEADER = "sepaihrd_tableaus.cuh"
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -40,13 +52,68 @@ def _nvcc() -> str:
     return path
 
 
+def tableau_id(tableau: str) -> int:
+    """The kernels' id of ``tableau`` (its index in :data:`KERNEL_TABLEAUS`)."""
+    name = get_tableau(tableau).name
+    if name not in KERNEL_TABLEAUS:
+        raise ValueError(f"the kernels are built for {KERNEL_TABLEAUS}, "
+                         f"not {name!r}")
+    return KERNEL_TABLEAUS.index(name)
+
+
+def _type_name(tableau: str) -> str:
+    return "Tab" + "".join(w[:1].upper() + w[1:] for w in tableau.split("_"))
+
+
+def tableau_header() -> str:
+    """The text of ``sepaihrd_tableaus.cuh``: one type per tableau of
+    :data:`KERNEL_TABLEAUS` with its stage count ``S``, ``fsal``, the
+    non-zero mask of each row of ``a`` below the diagonal (``a_row(i)``, bit
+    j for ``a[i, j] != 0``) and of ``b`` (``b_bits``), and
+    ``SEPAIHRD_TABLEAUS(X, A)``, which applies ``X(id, type, A)`` to each. The
+    coefficient values are not in it: the kernels take them at run time."""
+    lines = ["// Generated by mmidv1_tpu_torch/ops/_build.py from",
+             "// mmidv1_tpu_torch/ode/tableaus.py at build time; not edited by hand.",
+             "#pragma once", "", "namespace sepaihrd {", ""]
+    for i, name in enumerate(KERNEL_TABLEAUS):
+        tab = get_tableau(name)
+        S = tab.stages
+        rows = [sum(1 << j for j in range(r) if float(tab.a[r, j]) != 0.0)
+                for r in range(S)]
+        b_bits = sum(1 << j for j in range(S) if float(tab.b[j]) != 0.0)
+        cases = " ".join(f"case {r}: return {m:#x}u;"
+                         for r, m in enumerate(rows) if m)
+        lines += [f"struct {_type_name(name)} {{   // {name}",
+                  f"  static constexpr int id = {i};",
+                  f"  static constexpr int S = {S};",
+                  f"  static constexpr bool fsal = {str(tab.fsal).lower()};",
+                  f"  static constexpr unsigned b_bits = {b_bits:#x}u;",
+                  "  __host__ __device__ static constexpr unsigned a_row(int i) {",
+                  f"    switch (i) {{ {cases} default: return 0u; }}",
+                  "  }", "};", ""]
+    applied = [f"X({i}, {_type_name(n)}, A)" for i, n in enumerate(KERNEL_TABLEAUS)]
+    lines += ["#define SEPAIHRD_TABLEAUS(X, A) " + " ".join(applied), "",
+              "}  // namespace sepaihrd", ""]
+    return "\n".join(lines)
+
+
 def library_path(name: str) -> str:
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for fname in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(fname.encode() + b"\0" + f.read())
+    digest.update(TABLEAU_HEADER.encode() + b"\0" + tableau_header().encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _write_tableau_header():
+    os.makedirs(GEN_DIR, exist_ok=True)
+    path = os.path.join(GEN_DIR, TABLEAU_HEADER)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(tableau_header())
+    os.replace(tmp, path)
 
 
 def build(names: Sequence[str]) -> Dict[str, float]:
@@ -54,6 +121,7 @@ def build(names: Sequence[str]) -> Dict[str, float]:
     once; returns ``{name: seconds}`` (0.0 for an up-to-date library). The
     compiler's register and spill report goes to ``build/<name>.ptxas.txt``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    _write_tableau_header()
     started = {}
     for name in names:
         so = library_path(name)
@@ -61,7 +129,8 @@ def build(names: Sequence[str]) -> Dict[str, float]:
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         log = open(os.path.join(BUILD_DIR, f"{name}.ptxas.txt"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", GEN_DIR, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
         started[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                          log, tmp, so, time.perf_counter())
     seconds = {name: 0.0 for name in names}

@@ -48,8 +48,9 @@ from ..params import SEPAIHRDParams
 from .sepaihrd_fused import (N_AGES, SPLIT, WIDE, _check_inputs,
                              _launch_forward, build_objective_fused,
                              check_regime, check_schedule, check_tensors,
-                             host_consts, op_count, plain_days, plain_forward,
-                             plain_forward_split)
+                             dependent_stages, host_consts, op_count,
+                             plain_days, plain_forward, plain_forward_split,
+                             stage_use)
 
 L_CHUNK = 24        # days per checkpoint (csrc/sepaihrd_adjoint.cu kChunk)
 MAX_SUBSTEPS = 16   # K3's scratch holds the state after every substep
@@ -79,7 +80,7 @@ def _adjoint_fns():
     for fn in fns.values():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
@@ -247,9 +248,11 @@ def _launch_adjoint(agevec, scal, beff, obs, valid, ckpt, g, M, *, run_start,
     """Launch K3 on validated CUDA inputs: ``((dy0, dagevec, dscal, dbeff),
     regime, kernels launched)``. ``regime`` forces 1 or 2 past
     :func:`choose_regime`; only the card checks pass it."""
+    from ._build import tableau_id
+
     lib, need, fns = _adjoint_fns()
-    S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
-                                           run_count)
+    S, _fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
+                                            run_count)
     dev, dtype = agevec.device, agevec.dtype
     B, n_runs, n_chunks = agevec.shape[-1], len(run_start), ckpt.shape[0]
     n_intervals = int(sum(run_count))
@@ -278,8 +281,9 @@ def _launch_adjoint(agevec, scal, beff, obs, valid, ckpt, g, M, *, run_start,
                  g.data_ptr(), dy0.data_ptr(), dagevec.data_ptr(),
                  dscal.data_ptr(), dbeff.data_ptr(), scratch.data_ptr(),
                  scratch.numel(), B, obs.shape[0], int(runup_offset),
-                 int(substeps), S, fsal, a, b, m, n_runs, rs, rc, n_chunks,
-                 int(regime), wave, sm_count, ctypes.byref(n_kernels), stream)
+                 int(substeps), tableau_id(tableau), a, b, m, n_runs, rs, rc,
+                 n_chunks, int(regime), wave, sm_count,
+                 ctypes.byref(n_kernels), stream)
     _raise_on(lib, err, "sepaihrd_adjoint")
     return (dy0, dagevec, dscal, dbeff), int(regime), n_kernels.value
 
@@ -321,7 +325,9 @@ def fused_adjoint_chunked_reference(agevec, scal, beff, obs, valid, ckpt, g,
     pull), and once per unit ``lam`` without source (the homogeneous pulls).
     A last pass walks the chunks from the last to the first, ``lam <- A_c
     lam + b_c``, and accumulates the parameter cotangents ``dq += G_c lam +
-    h_c``; it runs in float64 whatever the inputs' type, as the kernel's."""
+    h_c``; it runs in float64 whatever the inputs' type, as the kernel's.
+    No lambda enters the last chunk, so its homogeneous pulls are not made
+    (the kernel makes them and does not read them)."""
     B, n_runs = agevec.shape[-1], len(run_count)
     n, n_chunks = int(sum(run_count)), ckpt.shape[0]
     kw = dict(run_start=run_start, run_count=run_count,
@@ -352,14 +358,16 @@ def fused_adjoint_chunked_reference(agevec, scal, beff, obs, valid, ckpt, g,
                 *leaves, obs, valid, M, **kw,
                 days=(c * L_CHUNK, min((c + 1) * L_CHUNK, n)))
             chunks.append((pull(ll, leaves, g.reshape(B), False),
-                           pull(y_end, leaves, unit, True)))
+                           pull(y_end, leaves, unit, True)
+                           if c < n_chunks - 1 else None))
 
     lam = torch.zeros((28, B), dtype=torch.float64, device=agevec.device)
     acc = [torch.zeros(shape, dtype=torch.float64, device=agevec.device)
            for shape in ((8, N_AGES, B), (7, B), (n_runs, B))]
     for particular, homogeneous in reversed(chunks):
-        step = [h.double() + torch.einsum("jb,j...b->...b", lam, G.double())
-                for h, G in zip(particular, homogeneous)]
+        step = [h.double() if G is None else h.double()
+                + torch.einsum("jb,j...b->...b", lam, G.double())
+                for h, G in zip(particular, homogeneous or [None] * 4)]
         acc = [a + s for a, s in zip(acc, step[1:])]
         lam = step[0][:7].reshape(28, B)
     dy0 = torch.zeros((C.NUM_COMPARTMENTS, N_AGES, B), dtype=torch.float64,
@@ -373,45 +381,50 @@ def op_count_adjoint(tableau: str, substeps: int, n_intervals: int,
     """Floating-point operations per chain, counted from the kernels' source
     as :func:`.sepaihrd_fused.op_count` is: per age lane, 41 per RHS, 95 per
     RHS transpose (``rhs_vjp``), 20 per non-zero stage or update coefficient
-    in a forward substep and 18 per observed day for the fold adjoint.
+    in a forward substep and 18 per observed day for the fold adjoint. A
+    dead stage (:func:`.sepaihrd_fused.stage_use`) is neither evaluated nor
+    transposed.
 
     ``"fwd"``: K2, which does K1's arithmetic (its checkpoint stores are
     bytes). ``"bwd"``: the least arithmetic of K3's function, one
-    re-integration from the checkpoints plus the transpose of every substep
-    (10 rows a stage: 20 per non-zero stage coefficient for the stage
-    cotangent's axpy, 10 per non-zero update coefficient and 10 per stage
-    for its seed and sum); the bounds use it. ``"bwd_design"``: K3 as built,
-    by regime. Both re-integrate once (stage "days") and recompute each
-    substep's stage inputs (all but the last stage's RHS, and the stage
-    axpys), and transpose with 7-row stage cotangents (14 per non-zero stage
-    coefficient, 10 per non-zero update coefficient, 7 per stage). Regime 2
-    does that once. Regime 1 computes each stage's contact matvec (11 of
-    the transpose's 95) once beside the stage inputs, transposes 29 times
-    (one particular and 28 homogeneous sweeps) and composes the chunks'
-    affine maps (57 per row of a chunk's map and per (chunk, run) segment,
-    once per chain)."""
+    re-integration from the checkpoints plus the transpose of every live
+    stage of every substep (10 rows a stage: 20 per non-zero stage
+    coefficient for the stage cotangent's axpy, 10 per non-zero update
+    coefficient and 10 per live stage for its seed and sum); the bounds use
+    it. ``"bwd_design"``: K3 as built, by regime. Both re-integrate once
+    (stage "days") and recompute each substep's stage inputs (the RHS of
+    every stage a later stage input reads, and the stage axpys), and
+    transpose with 7-row stage cotangents (14 per non-zero stage
+    coefficient, 10 per non-zero update coefficient, 7 per live stage).
+    Regime 2 does that once. Regime 1 computes each live stage's contact
+    matvec (11 of the transpose's 95) once beside the stage inputs,
+    transposes 29 times (one particular and 28 homogeneous sweeps) and
+    composes the chunks' affine maps (57 per row of a chunk's map and per
+    (chunk, run) segment, once per chain)."""
     tab = get_tableau(tableau)
-    S = tab.stages
+    feeds, live, _evaluated = stage_use(tableau)
+    n_feeds, n_live = sum(feeds), sum(live)
     nnz_a = int(np.count_nonzero(np.tril(tab.a, -1)))
     nnz_b = int(np.count_nonzero(tab.b))
     fwd = op_count(tableau, substeps, n_intervals, n_obs_days)
-    rhs_per_day = 1 + substeps * (S - 1) if tab.fsal else substeps * S
-    day = 41 * rhs_per_day + 20 * (nnz_a + nnz_b) * substeps
-    transpose = S * (95 + 10) + 20 * nnz_a + 10 * nnz_b
+    day = (41 * dependent_stages(tableau, substeps, 1)
+           + 20 * (nnz_a + nnz_b) * substeps)
+    transpose = n_live * (95 + 10) + 20 * nnz_a + 10 * nnz_b
     fold = 18 * n_obs_days
     bwd = n_intervals * (day + substeps * transpose) + fold
-    stage_inputs = 41 * (S - 1) + 20 * nnz_a
-    axpys7 = 7 * S + 14 * nnz_a + 10 * nnz_b
+    stage_inputs = 41 * n_feeds + 20 * nnz_a
+    axpys7 = 7 * n_live + 14 * nnz_a + 10 * nnz_b
     n_chunks = num_chunks(n_intervals)
     compose = 57 * (n_chunks * _OUT_ROWS + n_chunks + n_runs - 1)
 
     def design(per_substep):
         return n_intervals * (day + substeps * per_substep) + fold
 
-    chunked = stage_inputs + 11 * S + _SWEEPS * (84 * S + axpys7)
+    chunked = stage_inputs + 11 * n_live + _SWEEPS * (84 * n_live + axpys7)
     return {"fwd": fwd, "bwd": N_AGES * bwd,
             "bwd_design": {1: N_AGES * design(chunked) + compose,
-                           2: N_AGES * design(stage_inputs + 95 * S + axpys7)}}
+                           2: N_AGES * design(stage_inputs + 95 * n_live
+                                              + axpys7)}}
 
 
 class FusedObjectiveFn(torch.autograd.Function):

@@ -162,11 +162,29 @@ def chain_cycles(elem: int) -> float:
             + _SHUFFLE_CYCLES) / CHAIN_STAGES
 
 
-def dependent_stages(tableau: str, substeps: int, n_intervals: int) -> int:
-    """RHS evaluations of one chain, each of which needs the one before."""
+def stage_use(tableau: str):
+    """Which stages of a substep the kernels touch under their zero rule
+    (csrc/sepaihrd_common.cuh), as lists of bools by stage: ``feeds`` (a
+    later stage input reads its derivative), ``live`` (feeds, or its ``b``
+    is not 0: the adjoint transposes it) and ``evaluated`` (live, or carried
+    by FSAL: the forward evaluates its RHS). A zero coefficient is skipped,
+    so a stage that nothing reads is dead: fehlberg78's stage 10 in both
+    directions, dopri5's last in the adjoint only."""
     tab = get_tableau(tableau)
     S = tab.stages
-    return n_intervals * (1 + substeps * (S - 1) if tab.fsal else substeps * S)
+    feeds = [bool(np.any(tab.a[i + 1:, i] != 0.0)) for i in range(S)]
+    live = [f or float(tab.b[i]) != 0.0 for i, f in enumerate(feeds)]
+    evaluated = [x or (tab.fsal and i == S - 1) for i, x in enumerate(live)]
+    return feeds, live, evaluated
+
+
+def dependent_stages(tableau: str, substeps: int, n_intervals: int) -> int:
+    """RHS evaluations of one chain, each of which needs the one before
+    (FSAL carries the first stage of every substep of a day but the
+    first)."""
+    n = sum(stage_use(tableau)[2])
+    per_day = 1 + substeps * (n - 1) if get_tableau(tableau).fsal else substeps * n
+    return n_intervals * per_day
 
 
 def choose_forward_regime(B: int, sm_count: int) -> int:
@@ -211,7 +229,7 @@ def _forward_fns(ckpt: bool):
         fn = getattr(lib, f"{stem}_{suffix}")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * (8 if ckpt else 7)
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] * (2 if ckpt else 1)
                        + [ctypes.c_void_p])
@@ -227,10 +245,12 @@ def _launch_forward(wrapper, y0, agevec, scal, beff, obs, valid, M, *,
     ``batch_calls``):
     the log-likelihoods ``(B,)``. ``regime`` None lets
     :func:`choose_forward_regime` pick."""
+    from ._build import tableau_id
+
     dev, dtype = y0.device, y0.dtype
     B, elem = y0.shape[-1], y0.element_size()
-    S, fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
-                                           run_count)
+    _S, _fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
+                                             run_count)
     fns, error_string = _forward_fns(ckpt is not None)
     out = torch.empty(B, dtype=dtype, device=dev)
     with torch.cuda.device(dev):
@@ -244,7 +264,7 @@ def _launch_forward(wrapper, y0, agevec, scal, beff, obs, valid, M, *,
                 beff.data_ptr(), obs.data_ptr(), valid.data_ptr(),
                 out.data_ptr()) + (() if ckpt is None else (ckpt.data_ptr(),))
         err = fns[elem](*head, B, obs.shape[0], int(runup_offset),
-                        int(substeps), S, fsal, a, b, m, *tail)
+                        int(substeps), tableau_id(tableau), a, b, m, *tail)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"{error_string(err).decode()} ({err})")
@@ -549,14 +569,13 @@ def plain_forward_split(y0, agevec, scal, beff, obs, valid, M, *, run_start,
 
 def op_count(tableau: str, substeps: int, n_intervals: int, n_obs_days: int) -> int:
     """Floating-point operations per chain the kernel's arithmetic implies
-    (from its source: 41 per RHS per age lane, 20 per non-zero stage or
-    update coefficient per lane, 18 per observed day per lane), for the
-    roofline bound."""
+    (from its source: 41 per RHS evaluated (:func:`stage_use`) per age lane,
+    20 per non-zero stage or update coefficient per lane, 18 per observed
+    day per lane), for the roofline bound."""
     tab = get_tableau(tableau)
-    S = tab.stages
     nnz = int(np.count_nonzero(np.tril(tab.a, -1))) + int(np.count_nonzero(tab.b))
-    rhs_per_interval = 1 + substeps * (S - 1) if tab.fsal else substeps * S
-    per_lane = (n_intervals * (41 * rhs_per_interval + 20 * nnz * substeps)
+    per_lane = (n_intervals * (41 * dependent_stages(tableau, substeps, 1)
+                               + 20 * nnz * substeps)
                 + 18 * n_obs_days)
     return N_AGES * per_lane
 

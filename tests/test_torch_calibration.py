@@ -276,3 +276,63 @@ def test_calibrate_spain_cli_runs_on_cpu(tmp_path):
                                  device="cpu")
     assert torch.isfinite(p.beta_values).all()
     assert (tmp_path / "run_metadata.json").exists()
+
+
+def test_calibrate_spain_float64_reselection_matches_the_script(tmp_path,
+                                                                monkeypatch):
+    """The float32 run's float64 re-selection computes what
+    ``scripts/calibrate_spain.py:166-199`` computes: the run's float32
+    parameters cast up to float64, through the run's float32 space, on the
+    run's grid (40 days on both sides). At the run's own candidate thetas
+    the port's float64 log-likelihoods, and ``best_logl_float64``, equal
+    that expression's (``build_objective`` of the JAX package, rtol 1e-12:
+    the two objectives run the same float64 arithmetic), and
+    ``calibrated_parameters.txt`` is, byte for byte, what the JAX package's
+    ``save_calibration_results`` writes from the up-cast parameters."""
+    import dataclasses
+    import re
+
+    from mmidv1_tpu.cli.common import load_spain_pipeline as j_load
+    from mmidv1_tpu.data import save_calibration_results as j_save
+
+    from mmidv1_tpu_torch.cli import calibrate_spain as tcs
+
+    seen = {}
+    reselect = tcs.reselect_float64
+
+    def spy(*args, **kw):
+        lls64, params64 = reselect(*args, **kw)
+        seen.update(cands=args[4].numpy(), lls64=lls64.numpy())
+        return lls64, params64
+
+    monkeypatch.setattr(tcs, "reselect_float64", spy)
+    s = tcs.run_calibration(pso_particles=8, pso_iters=2, chains=4,
+                            mcmc_iters=2, thinning=1, burn_in=1, device="cpu",
+                            num_days=40, out=str(tmp_path), log=lambda m: None)
+    cands = seen["cands"]
+    assert s["dtype"] == "float32" and cands.dtype == np.float64
+    assert len(cands) >= 2
+
+    pipe = j_load(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                  num_days=40, dtype=jnp.float32)
+    # the script loads its float32 run with x64 off, so its space's bounds
+    # are float32 (the tests run with x64 on)
+    space = dataclasses.replace(pipe.space, **{
+        f: np.asarray(getattr(pipe.space, f), np.float32)
+        for f in ("lower", "upper", "sigmas")})
+    params64 = jax.tree_util.tree_map(
+        lambda x: jnp.asarray(np.asarray(x), jnp.float64), pipe.params)
+    ll64 = build_objective(space, params64, pipe.data, pipe.ts,
+                           substeps=4, constraint_mode=REFLECT,
+                           dtype=jnp.float64)
+    lls = np.asarray(jax.jit(jax.vmap(ll64))(jnp.asarray(cands, jnp.float64)))
+    np.testing.assert_allclose(seen["lls64"], lls, rtol=1e-12)
+    k = int(np.argmax(lls))
+    np.testing.assert_allclose(s["best_logl_float64"], lls[k], rtol=1e-12)
+
+    got = tmp_path / "calibrated_parameters.txt"
+    stamp = re.search(r"# Calibration completed: (.*)", got.read_text()).group(1)
+    want = tmp_path / "jax_calibrated_parameters.txt"
+    j_save(str(want), space.apply(params64, jnp.asarray(cands[k], jnp.float64)),
+           list(space.names), float(lls[k]), timestamp=stamp)
+    assert got.read_bytes() == want.read_bytes()

@@ -26,6 +26,12 @@ thread per (chain, age)). Each is forced and held to the same tolerances;
 the two do the same operations in the same order, so they are also held
 against each other far below those (float64 rtol 1e-13, float32 1e-6;
 chip_smoke.py counts the bits that differ at full width).
+
+Every kernel is built once per tableau (rk4, cash_karp, rkf45, dopri5,
+fehlberg78), the tableau's zero pattern compiled in, and skips a zero
+coefficient as the plain version does. At the stiff input of
+``tests/torch_stiff.py``, where an FMA by zero would turn the state NaN, each
+kernel in each regime equals the plain version at the same tolerances.
 """
 
 import os
@@ -43,6 +49,7 @@ from mmidv1_tpu_torch.ops import build_objective_fused, sepaihrd_fused as sf
 from mmidv1_tpu_torch.ops import sepaihrd_adjoint as adj
 
 sys.path.insert(0, os.path.dirname(__file__))
+import torch_stiff as stiff  # noqa: E402  (torch and NumPy only)
 from reference_impl import spain_like_prm  # noqa: E402  (NumPy only)
 
 torch.set_num_threads(1)
@@ -102,7 +109,8 @@ def _args(ll, theta0, B, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
                                         (torch.float32, 2e-5)])
-@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
+@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rkf45", "rk4",
+                                     "fehlberg78"])
 def test_kernel_matches_plain_version(cuda, dtype, rtol, tableau):
     for runup in (True, False):
         ll, theta0 = _objective(cuda, dtype, runup)
@@ -180,7 +188,8 @@ def _per_chain_close(got, ref, dtype, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
                                         (torch.float32, 2e-5)])
-@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
+@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rkf45", "rk4",
+                                     "fehlberg78"])
 def test_forward_ckpt_matches_plain_version(cuda, dtype, rtol, tableau):
     """K2: the log-likelihood (also against K1) and the checkpoints."""
     for runup in (True, False):
@@ -235,7 +244,8 @@ def _close_forward(got, ref, rtol):
 @pytest.mark.parametrize("regime", [sf.SPLIT, sf.WIDE])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
                                         (torch.float32, 2e-5)])
-@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
+@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rkf45", "rk4",
+                                     "fehlberg78"])
 def test_forward_regimes_match_plain_version(cuda, kernel, regime, dtype, rtol,
                                              tableau):
     """Each regime of K1 and K2 forced: B = 1, B not a multiple of a warp's
@@ -335,7 +345,8 @@ def _check_adjoint(cuda, dtype, tableau, regime, runup, n_days, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("regime", [None, 1, 2])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rk4", "fehlberg78"])
+@pytest.mark.parametrize("tableau", ["dopri5", "cash_karp", "rkf45", "rk4",
+                                     "fehlberg78"])
 def test_adjoint_matches_plain_version(cuda, dtype, tableau, regime):
     """K3: all four gradient outputs against autograd through the plain
     forward, with and without run-up, for a random cotangent, in the regime
@@ -375,3 +386,33 @@ def test_adjoint_sums_beta_per_run(cuda, regime):
         days, device=cuda), dday)
     np.testing.assert_allclose(dbeff.cpu().numpy(), summed.cpu().numpy(),
                                rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-10),
+                                        (torch.float32, 2e-5)])
+def test_kernels_match_plain_at_the_stiff_input(cuda, dtype, rtol):
+    """The stiff input (``tests/torch_stiff.py``): dopri5's discarded last
+    stage overflows on the last interval. K1 and K2 in each regime, and K3
+    in each regime, equal their plain versions there, every value finite;
+    the objective is finite, not ``finfo.min``."""
+    ll, thetas = stiff.stiff_objective(dtype, cuda)
+    args, kw, _inf = ll.prep.kernel_args(thetas)
+    kw = dict(kw, substeps=stiff.SUBSTEPS, tableau=stiff.TABLEAU)
+    ref = adj.fused_forward_ckpt_reference(*args, **kw)
+    assert torch.isfinite(ref[0]).all() and torch.isfinite(ref[1]).all()
+    for kernel in ("K1", "K2"):
+        for regime in (sf.SPLIT, sf.WIDE):
+            got = _forward(kernel, regime, args, kw)
+            assert torch.isfinite(got[0]).all(), (kernel, regime)
+            _close_forward(got, ref, rtol)
+    assert (ll(thetas) > -1e30).all()
+    y0, agevec, scal, beff, obs, valid, M = args
+    g = torch.ones(thetas.shape[0], dtype=dtype, device=cuda)
+    want = adj.fused_adjoint_reference(agevec, scal, beff, obs, valid, ref[1],
+                                       g, M, **kw)
+    for regime in (1, 2):
+        got = _adjoint(regime, agevec, scal, beff, obs, valid, ref[1], g, M, kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dy0", "dagevec", "dscal", "dbeff"), got, want):
+            _per_chain_close(a, b, dtype, f"stiff {name} regime {regime}")
