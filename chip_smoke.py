@@ -395,8 +395,7 @@ def compare(case, B, dtype_name, tableau, substeps, tol, pipe_cache, seed):
     thetas = torch.as_tensor(th, dtype=dtype, device="cuda")
     args, kw, infeasible = ll.prep.kernel_args(thetas)
     kw = dict(kw, substeps=substeps, tableau=tableau)
-    k = fused_objective(*args, **kw)
-    regime = fused_objective.regime
+    k, regime = regime_of("k1", lambda: fused_objective(*args, **kw))
     torch.cuda.synchronize()
     r, plain_ms = cuda_once(lambda: fused_objective_reference(*args, **kw))
     k_np, r_np = k.double().cpu().numpy(), r.double().cpu().numpy()
@@ -583,8 +582,8 @@ def compare_k3(case, B, dtype_name, tableau, substeps, tol, cache, seed):
     y0, agevec, scal, beff, obs, valid, M = args
     ll, ck = fused_forward_ckpt(*args, **kw)
     g = torch.ones_like(ll)
-    got = fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)
-    picked = fused_adjoint.regime
+    got, picked = regime_of("k3", lambda: fused_adjoint(
+        agevec, scal, beff, obs, valid, ck, g, M, **kw))
     torch.cuda.synchronize()
     ref = fused_adjoint_reference(agevec, scal, beff, obs, valid, ck, g, M, **kw)
     torch.cuda.synchronize()
@@ -625,17 +624,17 @@ def time_adjoint(B, dtype_name, cache, plain):
     vg, args, kw, thetas = spain_case(cache, dtype_name, CLAMP, "dopri5", 4, B,
                                       B + 7)
     y0, agevec, scal, beff, obs, valid, M = args
-    ll, ck = fused_forward_ckpt(*args, **kw)
+    (ll, ck), k2_regime = regime_of("k2", lambda: fused_forward_ckpt(*args,
+                                                                     **kw))
     g = torch.ones_like(ll)
     k3_args = (agevec, scal, beff, obs, valid, ck, g, M)
     bwd = lambda: fused_adjoint(*k3_args, **kw)
-    calls, kernels = fused_adjoint.launches, fused_adjoint.kernel_launches
-    grads = bwd()
+    kernels = launch_counts()["k3_kernels"]
+    grads, k3_regime = regime_of("k3", bwd)
     reps = 10 if B <= 1024 else 3
-    out = dict(B=B, dtype=dtype_name, k2_regime=fused_forward_ckpt.regime,
-               k3_regime=fused_adjoint.regime,
-               k3_kernels_per_call=(fused_adjoint.kernel_launches - kernels)
-               // (fused_adjoint.launches - calls),
+    out = dict(B=B, dtype=dtype_name, k2_regime=k2_regime,
+               k3_regime=k3_regime,
+               k3_kernels_per_call=launch_counts()["k3_kernels"] - kernels,
                k2_ms=cuda_ms(lambda: fused_forward_ckpt(*args, **kw), reps),
                k3_ms=cuda_ms(bwd, reps),
                vag_ms=cuda_ms(lambda: vg(thetas), reps))
@@ -755,8 +754,9 @@ def regime_crossover(cache, sizes=(64, 128, 256, 320, 384, 448, 512, 1024,
             y0, agevec, scal, beff, obs, valid, M = args
             ll, ck = fused_forward_ckpt(*args, **kw)
             k3_args = (agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M)
-            fused_adjoint(*k3_args, **kw)
-            row = dict(B=B, dtype=dtype_name, picked=fused_adjoint.regime,
+            _grads, picked = regime_of("k3", lambda: fused_adjoint(*k3_args,
+                                                                 **kw))
+            row = dict(B=B, dtype=dtype_name, picked=picked,
                        regime1_ms=0.0, regime2_ms=0.0)
             for regime in (1, 2, 2, 1):        # the mean of the two turns
                 row[f"regime{regime}_kernels"] = k3_forced(regime, *k3_args,
@@ -982,10 +982,12 @@ def forward_case(cache, B, dtype_name, clock_mhz):
                K1={}, K2={})
     got = {}
     for regime, name in REGIMES.items():
-        ll1 = fused_objective(*args, **kw, regime=regime)
-        ll2, ck = fused_forward_ckpt(*args, **kw, regime=regime)
+        ll1, ran1 = regime_of("k1", lambda: fused_objective(*args, **kw,
+                                                            regime=regime))
+        (ll2, ck), ran2 = regime_of("k2", lambda: fused_forward_ckpt(
+            *args, **kw, regime=regime))
         torch.cuda.synchronize()
-        if fused_objective.regime != regime or fused_forward_ckpt.regime != regime:
+        if ran1 != regime or ran2 != regime:
             fail(f"{case}: the wrappers did not run the forced regime {regime}")
         got[regime] = (ll1, ll2, ck)
         ll1n, rl = ll1.double().cpu().numpy(), ref[0].double().cpu().numpy()
@@ -1090,16 +1092,55 @@ def forward_phases(cache, build_dir):
 
 
 def zero_counts():
-    """Set every kernel's launch count to 0, just before a path is driven."""
-    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_forward_ckpt,
-                                      fused_objective)
-    for fwd in (fused_objective, fused_forward_ckpt):
-        fwd.launches = 0
-        fwd.regime_calls = {1: 0, 2: 0}
-        fwd.batch_calls = {}
-    fused_adjoint.launches = 0
-    fused_adjoint.kernel_launches = 0
-    fused_adjoint.regime_calls = {1: 0, 2: 0}
+    """Forget every kernel's launch count (the program's tracer), just
+    before a path is driven."""
+    from mmidv1_tpu_torch.utils import trace
+    trace.reset()
+
+
+def _launches(kernel):
+    """``{(regime, tableau, chains): n}``: the tracer's count of the
+    launches of ``kernel`` (``"k1"``, ``"k2"`` or ``"k3"``)."""
+    from mmidv1_tpu_torch.utils import trace
+    return trace.counts("launches", (kernel,))
+
+
+def regime_of(kernel, fn):
+    """``(fn(), regime)``: the one regime ``kernel`` ran in during ``fn``,
+    from the change of its launch count (fails on none or on two)."""
+    before = _launches(kernel)
+    out = fn()
+    regimes = {key[0] for key, n in _launches(kernel).items()
+               if n != before.get(key, 0)}
+    if len(regimes) != 1:
+        fail(f"{kernel} ran in regimes {sorted(regimes)}, expected one")
+    return out, regimes.pop()
+
+
+def launch_counts():
+    """Every kernel's launches since ``zero_counts``, by regime and by chain
+    count, then regime (K3: by regime, and its ``__global__`` launches)."""
+    from mmidv1_tpu_torch.utils import trace
+    out = {}
+    for kernel in ("k1", "k2", "k3"):
+        by_regime, by_batch = {1: 0, 2: 0}, {}
+        for (regime, _tableau, B), n in _launches(kernel).items():
+            by_regime[regime] += n
+            by_batch.setdefault(B, {})
+            by_batch[B][regime] = by_batch[B].get(regime, 0) + n
+        out[kernel] = sum(by_regime.values())
+        out[f"{kernel}_regime_calls"] = by_regime
+        if kernel == "k3":
+            out["k3_kernels"] = trace.total("k3.kernels")
+        else:
+            out[f"{kernel}_batch_calls"] = by_batch
+    return out
+
+
+def pick_counts(*keys):
+    """``keys`` of :func:`launch_counts`."""
+    c = launch_counts()
+    return {k: c[k] for k in keys}
 
 
 def read_counts(path, B, crossover):
@@ -1107,16 +1148,10 @@ def read_counts(path, B, crossover):
     Fails unless every K3 call ran in the one regime that the rule picks at
     ``B`` and launched that regime's kernels (both from the crossover row of
     ``B``, whose forced calls do not count here)."""
-    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_forward_ckpt,
-                                      fused_objective)
     row = next(r for r in crossover if r["B"] == B and r["dtype"] == "float32")
     regime = row["picked"]
-    counts = dict(k1=fused_objective.launches, k2=fused_forward_ckpt.launches,
-                  k1_regime_calls=dict(fused_objective.regime_calls),
-                  k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
-                  k3=fused_adjoint.launches,
-                  k3_kernels=fused_adjoint.kernel_launches,
-                  k3_regime_calls=dict(fused_adjoint.regime_calls),
+    counts = dict(pick_counts("k1", "k2", "k1_regime_calls", "k2_regime_calls",
+                              "k3", "k3_kernels", "k3_regime_calls"),
                   k3_regime=regime,
                   k3_kernels_per_call=row[f"regime{regime}_kernels"])
     if counts["k3"] < 1 or counts["k3_regime_calls"] != {
@@ -1273,13 +1308,12 @@ def k3_pick_row(cache, B):
                                     B + 7)
     y0, agevec, scal, beff, obs, valid, M = args
     ll, ck = fused_forward_ckpt(*args, **kw)
-    kernels = fused_adjoint.kernel_launches
-    fused_adjoint(agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M,
-                  **kw)
+    kernels = launch_counts()["k3_kernels"]
+    _grads, regime = regime_of("k3", lambda: fused_adjoint(
+        agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M, **kw))
     torch.cuda.synchronize()
-    regime = fused_adjoint.regime
     return dict(B=B, dtype="float32", picked=regime, **{
-        f"regime{regime}_kernels": fused_adjoint.kernel_launches - kernels})
+        f"regime{regime}_kernels": launch_counts()["k3_kernels"] - kernels})
 
 
 def primary_executable(cache, card):
@@ -1287,7 +1321,6 @@ def primary_executable(cache, card):
     and regime) and with nuts (K2 / K3 counted)."""
     import torch
     from mmidv1_tpu_torch.cli import sepaihrd_main
-    from mmidv1_tpu_torch.ops import fused_objective
     from mmidv1_tpu_torch.calibration.hill import HillClimbConfig
     from mmidv1_tpu_torch.cli.common import load_spain_pipeline
     # K1 against its plain version at the shapes the climber hands it, from
@@ -1311,10 +1344,8 @@ def primary_executable(cache, card):
                            "--scale", str(MAIN_SCALE), "--output-dir", out_dir]
                           + common)
     wall = time.perf_counter() - t0
-    by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
-    counts = dict(k1=fused_objective.launches,
-                  k1_regime_calls=dict(fused_objective.regime_calls),
-                  k1_batch_calls=by_batch)
+    counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+    by_batch = counts["k1_batch_calls"]
     hill, steps = s["hill"], s["mh_steps"]
     ran = sorted({1, hill["cloud_size"], hill["max_backtrack"],
                   hill["max_expansion"]})
@@ -1513,7 +1544,6 @@ def bench_phase(card):
     """Phase 15: the port's bench, K1 counted by chain count and regime."""
     import math
     from mmidv1_tpu_torch.cli import benchmark_main
-    from mmidv1_tpu_torch.ops import fused_objective
     batch, iterations, repeats = 4096, 20, 5
     zero_counts()
     t0 = time.perf_counter()
@@ -1522,7 +1552,8 @@ def bench_phase(card):
          str(iterations), "--repeats", str(repeats), "--json", "--device",
          "cuda", "--project-root", HERE])
     wall = time.perf_counter() - t0
-    by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
+    counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+    by_batch = counts["k1_batch_calls"]
     print(json.dumps(res), flush=True)
     bad = [k for k, v in res.items()
            if isinstance(v, float) and not math.isfinite(v)]
@@ -1545,10 +1576,7 @@ def bench_phase(card):
           f"{res['micro_evals_per_sec_inscan']:.4e}; mcmc "
           f"{res['mcmc_chain_steps_per_sec']:.4e} chain-steps/s; K1 by chain "
           f"count and regime {by_batch} on {card}", flush=True)
-    return dict(results=res, wall_seconds=wall,
-                launches=dict(k1=fused_objective.launches,
-                              k1_regime_calls=dict(fused_objective.regime_calls),
-                              k1_batch_calls=by_batch))
+    return dict(results=res, wall_seconds=wall, launches=counts)
 
 
 CAMPAIGN_CHAINS = 8192
@@ -1559,12 +1587,12 @@ def drive_campaign(name, argv, card, expected):
     call at 8192 chains in the wide regime, ``expected`` of them (the start
     unless resumed, one a step, the float64 re-selection)."""
     from mmidv1_tpu_torch.cli import production_campaign
-    from mmidv1_tpu_torch.ops import fused_objective
     zero_counts()
     t0 = time.perf_counter()
     meta = production_campaign.run(argv)
     wall = time.perf_counter() - t0
-    by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
+    counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+    by_batch = counts["k1_batch_calls"]
     if forward_pick(CAMPAIGN_CHAINS) != 2 or set(by_batch) != {CAMPAIGN_CHAINS} \
             or by_batch[CAMPAIGN_CHAINS] != {2: expected}:
         fail(f"campaign {name}: K1 by chain count and regime {by_batch}, "
@@ -1576,12 +1604,9 @@ def drive_campaign(name, argv, card, expected):
     print(f"[campaign] {name}: {wall:.1f} s, "
           f"{meta['chain_steps_per_sec_incl_host']:.4e} chain-steps/s, mean "
           f"acceptance {acc:.4f}, float64 MAP {meta['best_logl_float64']:.8e}"
-          f", K1 {fused_objective.launches} launches, all wide on {card}",
+          f", K1 {counts['k1']} launches, all wide on {card}",
           flush=True)
-    return dict(meta=meta, wall_seconds=wall,
-                launches=dict(k1=fused_objective.launches,
-                              k1_regime_calls=dict(fused_objective.regime_calls),
-                              k1_batch_calls=by_batch))
+    return dict(meta=meta, wall_seconds=wall, launches=counts)
 
 
 def same_bits(a_dir, b_dir, prefix, segments):
@@ -2014,7 +2039,7 @@ def pso_variants_phase(cache, card):
                                                   _step_draws, pso_step,
                                                   run_pso)
     from mmidv1_tpu_torch.cli.common import load_spain_pipeline
-    from mmidv1_tpu_torch.ops import build_objective_fused, fused_objective
+    from mmidv1_tpu_torch.ops import build_objective_fused
 
     t_phase = time.perf_counter()
     k1_compare = compare(f"float32 dopri5@4 B={PSO_SWARM} (PSO swarm shape)",
@@ -2051,7 +2076,8 @@ def pso_variants_phase(cache, card):
         res = run_pso(ll, pipe.space, cfg, generator=gen, theta0=pipe.theta0)
         best = float(res.best_f)
         wall = time.perf_counter() - t0
-        by_batch = {B: dict(v) for B, v in fused_objective.batch_calls.items()}
+        counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+        by_batch = counts["k1_batch_calls"]
         in_bounds = bool(pipe.space.in_bounds(res.best_x))
         print(f"[pso] {variant.name}: {PSO_SWARM} particles x {cfg.iterations} "
               f"iterations, {wall:.2f} s; best logL {best:.6e} > start "
@@ -2066,12 +2092,7 @@ def pso_variants_phase(cache, card):
             fail(f"PSO {variant.name}: best {best} vs start {ll0}, in bounds "
                  f"{in_bounds}")
         runs[variant.name] = dict(best_logl=best, start_logl=ll0,
-                                  wall_seconds=wall,
-                                  launches=dict(
-                                      k1=fused_objective.launches,
-                                      k1_regime_calls=dict(
-                                          fused_objective.regime_calls),
-                                      k1_batch_calls=by_batch))
+                                  wall_seconds=wall, launches=counts)
         # one more step from the run's final state, on the card and on the
         # host, fed the same draws and the same fitness values (K1's, read
         # on the card): the update's arithmetic. The quantum move reaches
@@ -2283,24 +2304,6 @@ PAR_PATHS = {
     "mala": (par_mala, {}, dict(samples=1e-9, sample_logps=1e-9,
                                 best_logp=1e-9, final_cov=1e-8)),
 }
-
-
-def launch_counts():
-    """Every kernel's launches since ``zero_counts``, by chain count and
-    regime (K3: by regime)."""
-    from mmidv1_tpu_torch.ops import (fused_adjoint, fused_forward_ckpt,
-                                      fused_objective)
-    return dict(
-        k1=fused_objective.launches,
-        k1_regime_calls=dict(fused_objective.regime_calls),
-        k1_batch_calls={B: dict(v) for B, v in
-                        fused_objective.batch_calls.items()},
-        k2=fused_forward_ckpt.launches,
-        k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
-        k2_batch_calls={B: dict(v) for B, v in
-                        fused_forward_ckpt.batch_calls.items()},
-        k3=fused_adjoint.launches, k3_kernels=fused_adjoint.kernel_launches,
-        k3_regime_calls=dict(fused_adjoint.regime_calls))
 
 
 def par_drive(name, mesh, pipes):
@@ -3536,15 +3539,14 @@ def rematch_grad_case(cache):
     case = f"float32 {tab}@{sub} B={B} REFLECT (mala_rematch)"
     _vg, args, kw, _th = spain_case(cache, "float32", REFLECT, tab, sub, B, 271)
     y0, agevec, scal, beff, obs, valid, M = args
-    ll, ck = fused_forward_ckpt(*args, **kw)
-    k2_regime = fused_forward_ckpt.regime
+    (ll, ck), k2_regime = regime_of("k2", lambda: fused_forward_ckpt(*args,
+                                                                     **kw))
     ref2, k2_plain_ms = cuda_once(lambda: fused_forward_ckpt_reference(*args,
                                                                        **kw))
     k2_check = check_k2(case, (ll, ck), ref2, FWD_TOL["float32"])
     g = torch.ones_like(ll)
     k3_args = (agevec, scal, beff, obs, valid, ck, g, M)
-    grads = fused_adjoint(*k3_args, **kw)
-    k3_regime = fused_adjoint.regime
+    grads, k3_regime = regime_of("k3", lambda: fused_adjoint(*k3_args, **kw))
     if k3_regime != 2:
         fail(f"K3 at {B} float32 chains ran regime {k3_regime}, not 2")
     n = K3_PLAIN_ROWS
@@ -3645,12 +3647,15 @@ def box_kernels(box, th, plain):
     y0, agevec, scal, beff, obs, valid, M = args
     ll, ck = fused_forward_ckpt(*args, **kw)
     k3_args = (agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M)
-    out = dict(k1_ms=cuda_ms(lambda: fused_objective(*args, **kw), 10),
-               k1_regime=fused_objective.regime,
-               k2_ms=cuda_ms(lambda: fused_forward_ckpt(*args, **kw), 10),
-               k2_regime=fused_forward_ckpt.regime,
-               k3_ms=cuda_ms(lambda: fused_adjoint(*k3_args, **kw), 10),
-               k3_regime=fused_adjoint.regime,
+    k1_ms, k1_regime = regime_of("k1", lambda: cuda_ms(
+        lambda: fused_objective(*args, **kw), 10))
+    k2_ms, k2_regime = regime_of("k2", lambda: cuda_ms(
+        lambda: fused_forward_ckpt(*args, **kw), 10))
+    k3_ms, k3_regime = regime_of("k3", lambda: cuda_ms(
+        lambda: fused_adjoint(*k3_args, **kw), 10))
+    out = dict(k1_ms=k1_ms, k1_regime=k1_regime,
+               k2_ms=k2_ms, k2_regime=k2_regime,
+               k3_ms=k3_ms, k3_regime=k3_regime,
                bounds=kernel_bounds(1, "float64", args, kw, obs.shape[0], ck))
     if plain:
         out["k1_plain_ms"] = cuda_once(
@@ -3858,8 +3863,8 @@ def recovery_kernels(case, engine, thetas, grad):
     chain = chain_bound_ms("dopri5", rec.SUBSTEPS, int(sum(kw["run_count"])),
                            8, clock)
     if not grad:
-        got = fused_objective(*args, **kw).double().cpu().numpy()
-        regime = fused_objective.regime
+        got, regime = regime_of("k1", lambda: fused_objective(*args, **kw))
+        got = got.double().cpu().numpy()
         ref, plain_ms = cuda_once(
             lambda: sf.fused_objective_reference(*args, **kw))
         ref = ref.double().cpu().numpy()
@@ -3878,15 +3883,15 @@ def recovery_kernels(case, engine, thetas, grad):
                           bound_by=bound["bound_by"], chain_bound_ms=chain,
                           sm_clock_mhz=clock)}
     else:
-        ll, ck = fused_forward_ckpt(*args, **kw)
-        k2_regime = fused_forward_ckpt.regime
+        (ll, ck), k2_regime = regime_of("k2", lambda: fused_forward_ckpt(
+            *args, **kw))
         ref2, k2_plain_ms = cuda_once(
             lambda: fused_forward_ckpt_reference(*args, **kw))
         k2_check = check_k2(case, (ll, ck), ref2, FWD_TOL["float64"])
         _y0, agevec, scal, beff, obs, valid, M = args
         k3_args = (agevec, scal, beff, obs, valid, ck, torch.ones_like(ll), M)
-        grads = fused_adjoint(*k3_args, **kw)
-        k3_regime = fused_adjoint.regime
+        grads, k3_regime = regime_of("k3", lambda: fused_adjoint(*k3_args,
+                                                                 **kw))
         ref3, k3_plain_ms = cuda_once(
             lambda: fused_adjoint_reference(*k3_args, **kw))
         k3_check = check_k3(case, grads, ref3, "float64", 1e-9)
@@ -3919,9 +3924,7 @@ def recovery_phase(card):
     import torch_recovery as rec
     from mmidv1_tpu_torch.calibration import CLAMP, REFLECT
     from mmidv1_tpu_torch.ops import (build_objective_fused,
-                                      build_objective_fused_grad,
-                                      fused_adjoint, fused_forward_ckpt,
-                                      fused_objective)
+                                      build_objective_fused_grad)
     t_phase = time.perf_counter()
     f64 = torch.float64
 
@@ -3938,10 +3941,7 @@ def recovery_phase(card):
         device="cuda").manual_seed(rec.R1_CALIBRATION_SEED))
     best = res.best_theta.cpu().numpy()
     best_logl = float(res.best_logl)
-    r1_counts = dict(k1=fused_objective.launches,
-                     k1_regime_calls=dict(fused_objective.regime_calls),
-                     k1_batch_calls={b: dict(v) for b, v in
-                                     fused_objective.batch_calls.items()})
+    r1_counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
     ll_true = float(ll_c(p["theta_true"][None])[0])
     samples = res.samples.cpu().numpy()
     median = float(np.median(samples[-100:].reshape(-1, 3)[:, 0]))
@@ -3992,14 +3992,8 @@ def recovery_phase(card):
     nres = rec.r3_nuts(None, q, value_and_grad_batch=vg)
     best_logp = float(nres.best_logp)
     seconds = time.perf_counter() - t0
-    r3_counts = dict(k1=fused_objective.launches,
-                     k2=fused_forward_ckpt.launches,
-                     k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
-                     k2_batch_calls={b: dict(v) for b, v in
-                                     fused_forward_ckpt.batch_calls.items()},
-                     k3=fused_adjoint.launches,
-                     k3_kernels=fused_adjoint.kernel_launches,
-                     k3_regime_calls=dict(fused_adjoint.regime_calls))
+    r3_counts = pick_counts("k1", "k2", "k2_regime_calls", "k2_batch_calls",
+                            "k3", "k3_kernels", "k3_regime_calls")
     calls = vg.calls
     ll0 = float(vg.value_batch(q["theta0"][None])[0])
     nb, cfg = rec.R3_CHAINS, rec.R3_NUTS
@@ -4142,8 +4136,8 @@ def hold_all(case, dtype_name, args, kw):
         ll2, ck = fused_forward_ckpt(*args, **kw, regime=regime)
         err[f"K1 {name}"] = _rel(ll1, ll_ref)
         err[f"K2 {name}"] = max(_rel(ll2, ll_ref), _rel_ckpt(ck, ck_ref))
-    got = fused_adjoint(agevec, scal, beff, obs, valid, ck_ref, g, M, **kw)
-    picked = fused_adjoint.regime
+    got, picked = regime_of("k3", lambda: fused_adjoint(
+        agevec, scal, beff, obs, valid, ck_ref, g, M, **kw))
     other, _n = k3_forced(3 - picked, agevec, scal, beff, obs, valid, ck_ref,
                           g, M, kw)
     torch.cuda.synchronize()
@@ -4409,9 +4403,10 @@ def table_timings(cache):
                      sm_clock_mhz=clock)
         found = []
         if kern == "K1":
-            ms = cuda_ms(lambda: fused_objective(*args, **kw), reps=10)
+            ms, regime = regime_of("k1", lambda: cuda_ms(
+                lambda: fused_objective(*args, **kw), reps=10))
             found.append(dict(shape, kernel="K1", ms=ms,
-                              regime=REGIMES[fused_objective.regime],
+                              regime=REGIMES[regime],
                               **k1_bound(B, dtype_name, args, kw,
                                          args[4].shape[0])))
         else:
@@ -4419,9 +4414,10 @@ def table_timings(cache):
             ll, ck = fused_forward_ckpt(*args, **kw)
             g = torch.ones_like(ll)
             bounds = adjoint_bounds(B, dtype_name, kw, args[4].shape[0], args, ck)
-            ms = cuda_ms(lambda: fused_forward_ckpt(*args, **kw), reps=10)
+            ms, regime = regime_of("k2", lambda: cuda_ms(
+                lambda: fused_forward_ckpt(*args, **kw), reps=10))
             found.append(dict(shape, kernel="K2", ms=ms,
-                              regime=REGIMES[fused_forward_ckpt.regime],
+                              regime=REGIMES[regime],
                               **bounds["fwd"]))
             run3 = lambda: adj._launch_adjoint(agevec, scal, beff, obs, valid,
                                                ck, g, M, **kw)
@@ -4449,8 +4445,7 @@ def tableau_phase(cache, strict=True):
     return them too (``--tableaus``, for a run against another build)."""
     import torch
     from mmidv1_tpu_torch.calibration.param_space import REFLECT
-    from mmidv1_tpu_torch.ops import (_build, fused_adjoint,
-                                      fused_forward_ckpt, fused_objective)
+    from mmidv1_tpu_torch.ops import _build
     t_phase = time.perf_counter()
     zero_counts()
     cases = []
@@ -4464,13 +4459,9 @@ def tableau_phase(cache, strict=True):
                 f"{dtype_name} {tableau}@{substeps} B={PHASE30_B} "
                 f"{PHASE30_DAYS} days", dtype_name, args, kw))
     stiff = [stiff_check(d) for d in ("float64", "float32")]
-    counts = dict(k1=fused_objective.launches,
-                  k1_regime_calls=dict(fused_objective.regime_calls),
-                  k2=fused_forward_ckpt.launches,
-                  k2_regime_calls=dict(fused_forward_ckpt.regime_calls),
-                  k3=fused_adjoint.launches,
-                  k3_kernels=fused_adjoint.kernel_launches,
-                  k3_regime_calls=dict(fused_adjoint.regime_calls),
+    counts = dict(pick_counts("k1", "k1_regime_calls", "k2",
+                              "k2_regime_calls", "k3", "k3_kernels",
+                              "k3_regime_calls"),
                   k3_forced_calls=len(cases) + len(stiff))
     checks_s = time.perf_counter() - t_phase
     sass, sass_misses = sass_tableaus(
@@ -4662,7 +4653,6 @@ def main():
     fwd = results["forward"] = forward_phases(cache, _build.BUILD_DIR)
 
     # 3. kernel vs plain version on the card
-    from mmidv1_tpu_torch.ops import fused_objective
     cases = []
     for dtype_name, tol in FWD_TOL.items():
         for tableau, substeps in (("dopri5", 4), ("cash_karp", 3)):
@@ -4704,8 +4694,8 @@ def main():
         x64=False, seed=0, device="cuda", root=HERE,
         out=os.path.join(HERE, "chiprun_out", "chip_smoke_calibration"),
         log=lambda m: print(f"[main] {m}", flush=True))
-    launches = fused_objective.launches
-    k1_by_regime = dict(fused_objective.regime_calls)
+    counts = pick_counts("k1", "k1_regime_calls")
+    launches, k1_by_regime = counts["k1"], counts["k1_regime_calls"]
     k1_regime = forward_pick(1024)
     results["main_path"] = dict(summary, launches=launches,
                                 k1_regime_calls=k1_by_regime,

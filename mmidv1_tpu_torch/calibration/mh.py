@@ -52,6 +52,7 @@ import torch
 
 from ..parallel.mesh import LOCAL
 from ..utils.logging import get_logger
+from ..utils.trace import span
 from .draws import GeneratorDraws, SeededRunDraws, shard_draws
 from .param_space import ParameterSpace
 
@@ -299,7 +300,9 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
     (:mod:`.draws`); step ``i`` of the run takes ``draws.step(i)`` (and
     ``draws.partners(i)`` for DE). ``progress_fn(step, accept_rate,
     best_logp, mean_scale)`` is called every ``report_interval`` blocks, the
-    only host reads of the run.
+    only host reads of the run. The tracer's spans of a run: ``mh.draws``
+    (a step's draws), ``mh.step``, ``mh.adapt_cov`` and ``mh.finish`` (the
+    stack and gather at the end).
 
     On a ``mesh`` the state is this rank's chains and ``draws`` gives its
     rows; the progress numbers are reduced over ranks (a collective: pass
@@ -323,15 +326,18 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
         for block in range(n_blocks):
             for t in range(thin):
                 i = block * thin + t
-                z, u = draws.step(i)
-                j = k = g_u = None
-                if de:
-                    j, k, g_u = draws.partners(i)
-                state = mh_step(state, z, u, space, loglik_batch, cfg,
-                                j=j, k=k, g_u=g_u, mesh=mesh)
+                with span("mh.draws"):
+                    z, u = draws.step(i)
+                    j = k = g_u = None
+                    if de:
+                        j, k, g_u = draws.partners(i)
+                with span("mh.step"):
+                    state = mh_step(state, z, u, space, loglik_batch, cfg,
+                                    j=j, k=k, g_u=g_u, mesh=mesh)
             if not de and state.step > cfg.burn_in and \
                     (state.step // thin) % adapt_every_blocks == 0:
-                state = adapt_covariance(state, cfg, mesh)
+                with span("mh.adapt_cov"):
+                    state = adapt_covariance(state, cfg, mesh)
             if progress_fn is not None and (block + 1) % report_every == 0:
                 ps = max(_proposal_steps(cfg, state.step), 1)
                 progress_fn(state.step,
@@ -341,25 +347,31 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
             if cfg.store_samples:
                 samples.append(state.x)
                 logps.append(state.logp)
-        B, d = state.x.shape
-        best_x, best_logp = _global_best(state.best_logp, state.best_x, mesh)
-        if samples:
-            samples, logps = torch.stack(samples), torch.stack(logps)
-        else:
-            samples = state.x.new_zeros((0, B, d))
-            logps = state.logp.new_zeros((0, B))
-        ps = max(_proposal_steps(cfg, state.step), 1)
-        return MHResult(
-            samples=mesh.all_gather(samples, dim=1),
-            sample_logps=mesh.all_gather(logps, dim=1),
-            best_x=best_x, best_logp=best_logp,
-            acceptance_rate=mesh.all_gather(
-                state.accept_count.to(state.x.dtype) / ps),
-            final_cov=state.cov,
-            final_scale=mesh.all_gather(torch.exp(state.log_scale)),
-            final_state=state)
+        with span("mh.finish"):
+            return _finish(state, samples, logps, cfg, mesh)
 
     return run
+
+
+def _finish(state: MHState, samples, logps, cfg: MHConfig, mesh) -> MHResult:
+    """A run's result from its final state and stored samples."""
+    B, d = state.x.shape
+    best_x, best_logp = _global_best(state.best_logp, state.best_x, mesh)
+    if samples:
+        samples, logps = torch.stack(samples), torch.stack(logps)
+    else:
+        samples = state.x.new_zeros((0, B, d))
+        logps = state.logp.new_zeros((0, B))
+    ps = max(_proposal_steps(cfg, state.step), 1)
+    return MHResult(
+        samples=mesh.all_gather(samples, dim=1),
+        sample_logps=mesh.all_gather(logps, dim=1),
+        best_x=best_x, best_logp=best_logp,
+        acceptance_rate=mesh.all_gather(
+            state.accept_count.to(state.x.dtype) / ps),
+        final_cov=state.cov,
+        final_scale=mesh.all_gather(torch.exp(state.log_scale)),
+        final_state=state)
 
 
 def run_mh(loglik_batch: Callable, space: ParameterSpace, theta0: torch.Tensor,
@@ -432,6 +444,10 @@ def run_mh_checkpointed(
     returned :class:`MHResult` is the last segment's, with the thinned
     samples of every segment run in THIS process, moved to the host segment
     by segment; segments from before a resume live in their own files.
+
+    The tracer's spans of a segment: ``campaign.segment`` (the segment
+    program), ``campaign.to_host`` (the thinned samples' copy) and
+    ``campaign.checkpoint`` (:func:`~..utils.checkpoint.save_mh_state`).
     """
     if segments <= 0:
         raise ValueError("segments must be positive")
@@ -467,16 +483,19 @@ def run_mh_checkpointed(
             state = init_mh_state(space, theta0, loglik_batch, draws.init(),
                                   jitter=jitter, initial_cov=initial_cov,
                                   reg_eps=seg_cfg.regularization_epsilon)
-        result = runner(state, draws)
+        with span("campaign.segment"):
+            result = runner(state, draws)
         state = result.final_state
-        all_samples.append(result.samples.cpu())
-        all_logps.append(result.sample_logps.cpu())
+        with span("campaign.to_host"):
+            all_samples.append(result.samples.cpu())
+            all_logps.append(result.sample_logps.cpu())
         if on_segment is not None:
             on_segment(s, result)
         if checkpoint_path:
             from ..utils.checkpoint import save_mh_state
 
-            save_mh_state(checkpoint_path, state)
+            with span("campaign.checkpoint"):
+                save_mh_state(checkpoint_path, state)
     if result is None:   # fully resumed campaign with nothing left to run
         raise ValueError(
             f"checkpoint already covers all {segments} segments "

@@ -41,8 +41,8 @@ from ..calibration.nuts import NUTSConfig
 from ..calibration.param_space import CLAMP, REFLECT
 from ..calibration.pso import PSOConfig
 from ..data import read_sepaihrd_parameters, save_calibration_results
-from ..ops import (build_objective_fused, build_objective_fused_grad,
-                   fused_adjoint, fused_forward_ckpt)
+from ..ops import build_objective_fused, build_objective_fused_grad
+from ..utils import trace
 from ..utils.device import resolve_device
 from .common import load_spain_pipeline
 
@@ -129,7 +129,7 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    k2_k3 = (fused_forward_ckpt.launches, fused_adjoint.launches)
+    k2_k3 = (trace.total("launches", ("k2",)), trace.total("launches", ("k3",)))
     t0 = time.perf_counter()
     result = calibrate(ll_clamp, ll_reflect, space, theta0, generator=gen,
                        algorithm=algorithm,
@@ -139,8 +139,8 @@ def run_calibration(*, algorithm: str = "psomcmc", chains: int = 64,
                        n_chains=chains, value_and_grad_batch_clamp=vag_clamp)
     best_ll = float(result.best_logl)
     wall = time.perf_counter() - t0
-    k2_k3 = (fused_forward_ckpt.launches - k2_k3[0],
-             fused_adjoint.launches - k2_k3[1])
+    k2_k3 = (trace.total("launches", ("k2",)) - k2_k3[0],
+             trace.total("launches", ("k3",)) - k2_k3[1])
     mh_steps = chain_steps_per_s = grad_evals_per_s = None
     if nuts:
         grad_evals_per_s = chains * vag_clamp.calls / result.phase2_seconds

@@ -45,7 +45,8 @@ from ..calibration.param_space import REFLECT, ParameterSpace
 from ..data.calibration_data import CalibrationData
 from ..ode.tableaus import get_tableau
 from ..params import SEPAIHRDParams
-from .sepaihrd_fused import (N_AGES, SPLIT, WIDE, _check_inputs,
+from ..utils import trace
+from .sepaihrd_fused import (N_AGES, _check_inputs,
                              _launch_forward, build_objective_fused,
                              check_regime, check_schedule, check_tensors,
                              dependent_stages, host_consts, op_count,
@@ -112,7 +113,9 @@ def fused_forward_ckpt(y0: torch.Tensor, agevec: torch.Tensor,
     pre-reset day-start state of every ``L_CHUNK``-th day. CPU inputs run
     the plain version; CUDA inputs launch K2 on the current stream, or
     raise. ``regime`` forces K2's split (1) or wide (2) regime past
-    :func:`.sepaihrd_fused.choose_forward_regime`, for tests and timing."""
+    :func:`.sepaihrd_fused.choose_forward_regime`, for tests and timing. A
+    launch counts in the tracer's ``launches`` under ``("k2", regime,
+    tableau, chains)``."""
     B, _n_runs, _T_obs = _check_inputs(y0, agevec, scal, beff, obs, valid, M,
                                        run_start, run_count, runup_offset,
                                        substeps)
@@ -129,12 +132,6 @@ def fused_forward_ckpt(y0: torch.Tensor, agevec: torch.Tensor,
     out = _launch_forward(fused_forward_ckpt, y0, agevec, scal, beff, obs,
                           valid, M, **kw, ckpt=ckpt, regime=regime)
     return out, ckpt
-
-
-fused_forward_ckpt.launches = 0     # calls that launched K2 (one kernel each)
-fused_forward_ckpt.regime = None    # the regime of the last call
-fused_forward_ckpt.regime_calls = {SPLIT: 0, WIDE: 0}   # those calls by regime
-fused_forward_ckpt.batch_calls = {}   # those calls by chain count, then regime
 
 
 def fused_forward_ckpt_reference(y0, agevec, scal, beff, obs, valid, M, *,
@@ -195,7 +192,10 @@ def fused_adjoint(agevec: torch.Tensor, scal: torch.Tensor, beff: torch.Tensor,
     B))``: the cotangent ``g (B,)`` of the log-likelihood pulled back to the
     inputs of :func:`fused_forward_ckpt`, from its checkpoints. dy0's R row
     and its D/CumH/CumICU rows (reset before they are read) are 0. CPU
-    inputs run the plain version; CUDA inputs launch K3, or raise."""
+    inputs run the plain version; CUDA inputs launch K3, or raise. A launch
+    counts in the tracer's ``launches`` under ``("k3", regime, tableau,
+    chains)`` and its ``__global__`` launches in ``k3.kernels`` under
+    ``(regime,)``."""
     B, n_chunks = _check_adjoint_inputs(agevec, scal, beff, obs, valid, ckpt,
                                         g, M, run_start, run_count,
                                         runup_offset, substeps)
@@ -208,17 +208,9 @@ def fused_adjoint(agevec: torch.Tensor, scal: torch.Tensor, beff: torch.Tensor,
         raise ValueError(f"unsupported device {agevec.device}")
     out, regime, n_kernels = _launch_adjoint(agevec, scal, beff, obs, valid,
                                              ckpt, g, M, **kw)
-    fused_adjoint.launches += 1
-    fused_adjoint.kernel_launches += n_kernels
-    fused_adjoint.regime = regime
-    fused_adjoint.regime_calls[regime] += 1
+    trace.count("launches", ("k3", regime, tableau, B))
+    trace.count("k3.kernels", (regime,), n_kernels)
     return out
-
-
-fused_adjoint.launches = 0          # calls that launched K3
-fused_adjoint.kernel_launches = 0   # the __global__ launches those calls made
-fused_adjoint.regime = None         # the regime of the last call
-fused_adjoint.regime_calls = {1: 0, 2: 0}   # those calls by regime
 
 
 def choose_regime(B: int, n_chunks: int, sm_count: int, elem: int,

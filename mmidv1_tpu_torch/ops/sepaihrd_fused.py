@@ -41,6 +41,7 @@ from ..models import sepaihrd
 from ..ode.integrate import _advance_interval_fixed
 from ..ode.tableaus import get_tableau
 from ..params import SEPAIHRDParams
+from ..utils import trace
 from ..utils.device import resolve_device
 
 N_AGES = 4
@@ -241,10 +242,9 @@ def _launch_forward(wrapper, y0, agevec, scal, beff, obs, valid, M, *,
                     run_start, run_count, runup_offset, substeps, tableau,
                     ckpt=None, regime=None):
     """Launch K1 (``ckpt`` None) or K2 on validated CUDA inputs and count the
-    launch on ``wrapper`` (its ``launches``, ``regime``, ``regime_calls``,
-    ``batch_calls``):
-    the log-likelihoods ``(B,)``. ``regime`` None lets
-    :func:`choose_forward_regime` pick."""
+    launch in the tracer's ``launches`` under ``("k1" or "k2", regime,
+    tableau, chains)``: the log-likelihoods ``(B,)``. ``regime`` None lets
+    :func:`choose_forward_regime` pick; ``wrapper`` names the failing call."""
     from ._build import tableau_id
 
     dev, dtype = y0.device, y0.dtype
@@ -268,11 +268,8 @@ def _launch_forward(wrapper, y0, agevec, scal, beff, obs, valid, M, *,
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"{error_string(err).decode()} ({err})")
-    wrapper.launches += 1
-    wrapper.regime = regime
-    wrapper.regime_calls[regime] += 1
-    by_regime = wrapper.batch_calls.setdefault(B, {})
-    by_regime[regime] = by_regime.get(regime, 0) + 1
+    trace.count("launches", ("k1" if ckpt is None else "k2", int(regime),
+                             tableau, B))
     return out
 
 
@@ -289,25 +286,21 @@ def fused_objective(y0: torch.Tensor, agevec: torch.Tensor, scal: torch.Tensor,
     of ``beff`` applies to run r). CPU inputs run the plain version; CUDA
     inputs launch the kernel on the current stream, or raise. ``regime``
     forces the kernel's split (1) or wide (2) regime past
-    :func:`choose_forward_regime`, for tests and timing."""
-    _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start, run_count,
-                  runup_offset, substeps)
-    check_regime(regime)
-    kw = dict(run_start=run_start, run_count=run_count,
-              runup_offset=runup_offset, substeps=substeps, tableau=tableau)
-    if y0.device.type == "cpu":
-        return fused_objective_reference(y0, agevec, scal, beff, obs, valid, M,
-                                         **kw)
-    if y0.device.type != "cuda":
-        raise ValueError(f"unsupported device {y0.device}")
-    return _launch_forward(fused_objective, y0, agevec, scal, beff, obs, valid,
-                           M, **kw, regime=regime)
-
-
-fused_objective.launches = 0        # calls that launched K1 (one kernel each)
-fused_objective.regime = None       # the regime of the last call
-fused_objective.regime_calls = {SPLIT: 0, WIDE: 0}   # those calls by regime
-fused_objective.batch_calls = {}    # those calls by chain count, then regime
+    :func:`choose_forward_regime`, for tests and timing. The whole call is
+    the tracer's span ``k1.launch`` (on the host: the plain version)."""
+    with trace.span("k1.launch"):
+        _check_inputs(y0, agevec, scal, beff, obs, valid, M, run_start,
+                      run_count, runup_offset, substeps)
+        check_regime(regime)
+        kw = dict(run_start=run_start, run_count=run_count,
+                  runup_offset=runup_offset, substeps=substeps, tableau=tableau)
+        if y0.device.type == "cpu":
+            return fused_objective_reference(y0, agevec, scal, beff, obs,
+                                             valid, M, **kw)
+        if y0.device.type != "cuda":
+            raise ValueError(f"unsupported device {y0.device}")
+        return _launch_forward(fused_objective, y0, agevec, scal, beff, obs,
+                               valid, M, **kw, regime=regime)
 
 
 def host_consts(tableau: str, substeps: int, M, run_start, run_count):
@@ -620,11 +613,26 @@ class FusedPrep:
 
     def kernel_args(self, thetas: torch.Tensor):
         """``(args, kwargs, infeasible)`` of :func:`fused_objective` for a
-        ``(B, d)`` theta batch."""
-        theta = self.space.constrain(thetas.to(self.dtype), self.mode)
-        B = theta.shape[0]
-        prm = self.space.apply(self.base, theta)
-        y0, infeasible = sepaihrd.initial_state_for_params(prm, self.base_y0)
+        ``(B, d)`` theta batch: the tracer's span ``objective.prep``, with
+        ``prep.constrain``, ``prep.apply``, ``prep.initial_state`` and
+        ``prep.pack`` (y0, agevec, scal, beff) inside."""
+        with trace.span("objective.prep"):
+            with trace.span("prep.constrain"):
+                theta = self.space.constrain(thetas.to(self.dtype), self.mode)
+            B = theta.shape[0]
+            with trace.span("prep.apply"):
+                prm = self.space.apply(self.base, theta)
+            with trace.span("prep.initial_state"):
+                y0, infeasible = sepaihrd.initial_state_for_params(
+                    prm, self.base_y0)
+            with trace.span("prep.pack"):
+                args = self._pack(prm, y0, B)
+            return (args + (self.obs, self.valid, self.M),
+                    dict(run_start=self.run_start, run_count=self.run_count,
+                         runup_offset=self.runup_offset), infeasible.expand(B))
+
+    def _pack(self, prm, y0, B):
+        """The kernel's per-chain inputs ``(y0, agevec, scal, beff)``."""
         y0 = y0.expand(B, C.NUM_COMPARTMENTS, N_AGES).permute(1, 2, 0).contiguous()
         vecs = [prm.a, prm.h_infec * self.invN, prm.p, prm.h, prm.icu, prm.d_H,
                 prm.d_ICU, prm.d_community]
@@ -644,9 +652,7 @@ class FusedPrep:
             ksrc = torch.ones(1, dtype=self.dtype, device=self.device)
         beff = torch.stack([(bsrc[..., i] * ksrc[..., k]).expand(B)
                             for i, k in zip(self.pb, self.pk)]).contiguous()
-        return ((y0, agevec, scal, beff, self.obs, self.valid, self.M),
-                dict(run_start=self.run_start, run_count=self.run_count,
-                     runup_offset=self.runup_offset), infeasible.expand(B))
+        return y0, agevec, scal, beff
 
 
 def build_objective_fused(space: ParameterSpace, base_params: SEPAIHRDParams,
@@ -660,7 +666,8 @@ def build_objective_fused(space: ParameterSpace, base_params: SEPAIHRDParams,
     apply, initial state and the per-run beta stay in PyTorch; the solve and
     fold run in one launch. Infeasible, NaN or Inf results become
     ``finfo(dtype).min``. ``dtype``/``device`` default to the base
-    parameters'."""
+    parameters'. A call is the tracer's span ``objective``; its mask of
+    infeasible, NaN or Inf rows is ``objective.mask``."""
     dtype = dtype or base_params.dtype
     dev = resolve_device(device or base_params.device)
     prep = FusedPrep(space, base_params, data, ts,
@@ -668,10 +675,13 @@ def build_objective_fused(space: ParameterSpace, base_params: SEPAIHRDParams,
                      constraint_mode=constraint_mode, dtype=dtype, device=dev)
 
     def loglik_batch(thetas: torch.Tensor) -> torch.Tensor:
-        args, kw, infeasible = prep.kernel_args(thetas)
-        ll = fused_objective(*args, **kw, substeps=substeps, tableau=tableau)
-        bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
-        return torch.where(bad, torch.full_like(ll, lowest(dtype)), ll)
+        with trace.span("objective"):
+            args, kw, infeasible = prep.kernel_args(thetas)
+            ll = fused_objective(*args, **kw, substeps=substeps,
+                                 tableau=tableau)
+            with trace.span("objective.mask"):
+                bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
+                return torch.where(bad, torch.full_like(ll, lowest(dtype)), ll)
 
     loglik_batch.prep = prep
     return loglik_batch

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..calibration.mh import MHState
+from .trace import count, span
 
 # the host-side step counters, stored as the JAX package's int32 scalars
 _INT_FIELDS = ("step", "it")
@@ -37,14 +38,20 @@ def _to_numpy(v) -> np.ndarray:
 
 def _save_state_npz(path: str, state) -> None:
     """Atomic NamedTuple-of-tensors save: write a tmp npz, then rename. One
-    routine for the MH/PT/NUTS savers."""
+    routine for the MH/PT/NUTS savers. The tracer's spans
+    ``checkpoint.to_host`` (every field to NumPy) and ``checkpoint.write``
+    (compress, write, rename); the file's size counts in
+    ``checkpoint.bytes``."""
     d = os.path.dirname(os.path.abspath(path))
     if d:
         os.makedirs(d, exist_ok=True)
     tmp = path + ".tmp.npz"
-    np.savez_compressed(tmp, **{k: _to_numpy(v)
-                                for k, v in state._asdict().items()})
-    os.replace(tmp, path)
+    with span("checkpoint.to_host"):
+        arrays = {k: _to_numpy(v) for k, v in state._asdict().items()}
+    with span("checkpoint.write"):
+        np.savez_compressed(tmp, **arrays)
+        os.replace(tmp, path)
+    count("checkpoint.bytes", n=os.path.getsize(path))
 
 
 def _fields(z, names, device) -> dict:

@@ -37,6 +37,7 @@ from mmidv1_tpu_torch.data import CalibrationData as TCalibrationData
 from mmidv1_tpu_torch.ops import build_objective_fused_grad
 from mmidv1_tpu_torch.ops import sepaihrd_adjoint as adj
 from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+from mmidv1_tpu_torch.utils import trace
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_model import to_torch_params, to_torch_space  # noqa: E402
@@ -205,13 +206,14 @@ def test_adjoint_wrappers_dispatch_and_validate(small):
     """CPU tensors run the plain versions (no launch counted); malformed
     inputs raise before anything runs."""
     (y0, agevec, scal, beff, obs, valid, M), kw = _kernel_args(small, 2, 3)
-    before = (adj.fused_forward_ckpt.launches, adj.fused_adjoint.launches)
+    launches = lambda: (trace.total("launches", ("k2",)),
+                        trace.total("launches", ("k3",)))
+    before = launches()
     _ll, ck = adj.fused_forward_ckpt(y0, agevec, scal, beff, obs, valid, M,
                                      **kw)
     g = torch.ones(2, dtype=torch.float64)
     adj.fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)
-    assert (adj.fused_forward_ckpt.launches, adj.fused_adjoint.launches) \
-        == before
+    assert launches() == before
     bad = [dict(g=g[:1]), dict(ckpt=ck[1:]), dict(g=g.float()),
            dict(agevec=agevec.transpose(1, 2).contiguous().transpose(1, 2))]
     base = dict(agevec=agevec, scal=scal, beff=beff, obs=obs, valid=valid,

@@ -34,6 +34,7 @@ from mmidv1_tpu.ops import build_objective_pallas_grad
 from mmidv1_tpu_torch.ops import build_objective_fused_grad
 from mmidv1_tpu_torch.ops import sepaihrd_adjoint as adj
 from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+from mmidv1_tpu_torch.utils import trace
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_adjoint import short_spain  # noqa: E402,F401  (fixture)
@@ -208,17 +209,14 @@ def test_wrappers_on_the_cpu_run_the_plain_version_in_any_regime(regime):
     """A regime is the card's matter: CPU tensors run the plain version, no
     launch is counted."""
     args, kw = _inputs(torch.float64, 30, False, 2, 2, "rk4")
-    before = (sf.fused_objective.launches, adj.fused_forward_ckpt.launches,
-              dict(sf.fused_objective.regime_calls))
+    before = trace.snapshot()["counters"].get("launches", {})
     _same_bits(sf.fused_objective(*args, **kw, regime=regime),
                sf.fused_objective_reference(*args, **kw))
     ll, ck = adj.fused_forward_ckpt(*args, **kw, regime=regime)
     ref = adj.fused_forward_ckpt_reference(*args, **kw)
     _same_bits(ll, ref[0])
     _same_bits(ck, ref[1])
-    assert before == (sf.fused_objective.launches,
-                      adj.fused_forward_ckpt.launches,
-                      dict(sf.fused_objective.regime_calls))
+    assert trace.snapshot()["counters"].get("launches", {}) == before
 
 
 def test_launch_constants_are_made_once():

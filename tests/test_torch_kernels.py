@@ -47,6 +47,7 @@ from mmidv1_tpu_torch.calibration.param_space import REFLECT, ParameterSpace
 from mmidv1_tpu_torch.data import CalibrationData
 from mmidv1_tpu_torch.ops import build_objective_fused, sepaihrd_fused as sf
 from mmidv1_tpu_torch.ops import sepaihrd_adjoint as adj
+from mmidv1_tpu_torch.utils import trace
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_stiff as stiff  # noqa: E402  (torch and NumPy only)
@@ -63,6 +64,16 @@ def cuda():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode "
                     "(run this file on the card, or python3 chip_smoke.py)")
     return torch.device("cuda")
+
+
+def _new_launches(kernel, fn):
+    """``(fn(), {(regime, tableau, chains): n})``: what ``fn`` added to the
+    tracer's launches of ``kernel`` (``"k1"``, ``"k2"`` or ``"k3"``)."""
+    before = trace.counts("launches", (kernel,))
+    out = fn()
+    return out, {k: n - before.get(k, 0)
+                 for k, n in trace.counts("launches", (kernel,)).items()
+                 if n != before.get(k, 0)}
 
 
 def _objective(device, dtype, runup=True, n_days=35):
@@ -117,10 +128,10 @@ def test_kernel_matches_plain_version(cuda, dtype, rtol, tableau):
         for B in (1, 5, 37, 300):
             args, kw, _inf = _args(ll, theta0, B, B)
             kw = dict(kw, substeps=2, tableau=tableau)
-            before = sf.fused_objective.launches
+            before = trace.total("launches", ("k1",))
             k = sf.fused_objective(*args, **kw)
             torch.cuda.synchronize()
-            assert sf.fused_objective.launches == before + 1
+            assert trace.total("launches", ("k1",)) == before + 1
             r = sf.fused_objective_reference(*args, **kw)
             assert torch.isfinite(k).all()
             np.testing.assert_allclose(k.double().cpu().numpy(),
@@ -142,9 +153,9 @@ def test_wrapper_dispatches_by_device_and_validates():
     inputs raise before anything runs."""
     ll, theta0 = _objective("cpu", torch.float64)
     args, kw, _inf = _args(ll, theta0, 3, 1)
-    before = sf.fused_objective.launches
+    before = trace.total("launches", ("k1",))
     out = sf.fused_objective(*args, **kw, substeps=2)
-    assert sf.fused_objective.launches == before
+    assert trace.total("launches", ("k1",)) == before
     np.testing.assert_array_equal(
         out.numpy(), sf.fused_objective_reference(*args, **kw, substeps=2).numpy())
     y0, M = args[0], args[6]
@@ -197,10 +208,10 @@ def test_forward_ckpt_matches_plain_version(cuda, dtype, rtol, tableau):
         for B in (1, 5, 37):
             args, kw, _inf = _args(ll, theta0, B, B)
             kw = dict(kw, substeps=2, tableau=tableau)
-            before = adj.fused_forward_ckpt.launches
+            before = trace.total("launches", ("k2",))
             k, ck = adj.fused_forward_ckpt(*args, **kw)
             torch.cuda.synchronize()
-            assert adj.fused_forward_ckpt.launches == before + 1
+            assert trace.total("launches", ("k2",)) == before + 1
             r, rck = adj.fused_forward_ckpt_reference(*args, **kw)
             assert ck.shape == rck.shape == (adj.num_chunks(
                 sum(kw["run_count"])), 10, 4, B)
@@ -218,12 +229,10 @@ def _forward(kernel, regime, args, kw):
     """K1 (``(ll, None)``) or K2 (``(ll, ckpt)``) forced into ``regime``
     through its wrapper, the launch counted by regime."""
     fn = sf.fused_objective if kernel == "K1" else adj.fused_forward_ckpt
-    before, by_regime = fn.launches, dict(fn.regime_calls)
-    out = fn(*args, **kw, regime=regime)
+    out, new = _new_launches(kernel.lower(), lambda: fn(*args, **kw,
+                                                        regime=regime))
     torch.cuda.synchronize()
-    by_regime[regime] += 1
-    assert fn.launches == before + 1 and fn.regime == regime
-    assert fn.regime_calls == by_regime
+    assert new == {(regime, kw["tableau"], args[0].shape[-1]): 1}
     return (out, None) if kernel == "K1" else out
 
 
@@ -299,10 +308,8 @@ def test_forward_rule_picks_and_counts(cuda):
     picked = sf.choose_forward_regime(12, sms)
     ref = adj.fused_forward_ckpt_reference(*args, **kw)
     for kernel, fn in (("K1", sf.fused_objective), ("K2", adj.fused_forward_ckpt)):
-        by_regime = dict(fn.regime_calls)
-        got = fn(*args, **kw)
-        by_regime[picked] += 1
-        assert fn.regime == picked and fn.regime_calls == by_regime
+        got, new = _new_launches(kernel.lower(), lambda: fn(*args, **kw))
+        assert new == {(picked, "fehlberg78", 12): 1}
         _close_forward((got, None) if kernel == "K1" else got, ref, 1e-10)
 
 
@@ -310,13 +317,11 @@ def _adjoint(regime, agevec, scal, beff, obs, valid, ck, g, M, kw):
     """K3 through its wrapper (``regime`` None: the rule picks, and the call
     is counted) or forced into a regime through the launcher."""
     if regime is None:
-        before = adj.fused_adjoint.launches
-        by_regime = dict(adj.fused_adjoint.regime_calls)
-        got = adj.fused_adjoint(agevec, scal, beff, obs, valid, ck, g, M, **kw)
-        assert adj.fused_adjoint.launches == before + 1
-        assert adj.fused_adjoint.regime in (1, 2)
-        by_regime[adj.fused_adjoint.regime] += 1
-        assert adj.fused_adjoint.regime_calls == by_regime
+        got, new = _new_launches("k3", lambda: adj.fused_adjoint(
+            agevec, scal, beff, obs, valid, ck, g, M, **kw))
+        ((regime, tableau, B), n), = new.items()
+        assert n == 1 and regime in (1, 2)
+        assert (tableau, B) == (kw["tableau"], g.shape[0])
         return got
     got, used, n_kernels = adj._launch_adjoint(agevec, scal, beff, obs, valid,
                                                ck, g, M, regime=regime, **kw)
