@@ -150,21 +150,36 @@ class ParameterSpace:
 
     # --- pure functions on (..., d) batches --------------------------------
 
-    def apply(self, base: SEPAIHRDParams, theta: torch.Tensor) -> SEPAIHRDParams:
+    def apply(self, base: SEPAIHRDParams, theta: torch.Tensor,
+              table=None) -> SEPAIHRDParams:
         """Scatter a ``(..., d)`` theta batch into fresh parameters whose
         calibrated fields carry the batch dimensions. Values are copied
-        exactly (index scatter, no arithmetic)."""
+        exactly (index scatter, no arithmetic). ``table`` is
+        :meth:`scatter_table` of theta's device; without it the positions
+        are Python lists, which each call copies to the device."""
         batch = theta.shape[:-1]
         updates = {}
-        for field, (fidx, tidx) in self._scatter.items():
+        for field, fidx, tidx in table or self.scatter_table():
             cur = getattr(base, field)
-            if fidx[0] == -1:  # scalar field: exactly one theta entry
-                updates[field] = theta[..., tidx[0]].to(cur.dtype)
+            if fidx is None:  # scalar field: exactly one theta entry
+                updates[field] = theta[..., tidx].to(cur.dtype)
             else:
                 new = cur.expand(batch + cur.shape[-1:]).clone()
                 new[..., fidx] = theta[..., tidx].to(cur.dtype)
                 updates[field] = new
         return base.replace(**updates)
+
+    def scatter_table(self, device=None) -> Tuple:
+        """:meth:`apply`'s positions, a ``(field, field positions, theta
+        positions)`` per field: a scalar field's are ``None`` and one int,
+        a vector field's two lists, or with ``device`` two int64 tensors
+        held there (so the scatter enqueues no host-to-device copy, as a
+        CUDA graph capture requires)."""
+        pos = (lambda x: x) if device is None else (
+            lambda x: torch.tensor(x, dtype=torch.int64, device=device))
+        return tuple((field, None, tidx[0]) if fidx[0] == -1
+                     else (field, pos(fidx), pos(tidx))
+                     for field, (fidx, tidx) in self._scatter.items())
 
     def extract(self, params: SEPAIHRDParams) -> torch.Tensor:
         """Gather the current theta ``(..., d)`` from parameters (reference

@@ -26,6 +26,7 @@ chains (:func:`plain_forward_split` is its plain model), one thread per
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Callable, Optional, Sequence
@@ -587,6 +588,7 @@ class FusedPrep:
                              "ts must be unit-spaced")
         self.space, self.mode, self.dtype, self.device = (space, constraint_mode,
                                                           dtype, device)
+        self.scatter = space.scatter_table(device)
         self.base = base_params.to(device, dtype)
         self.base_y0 = torch.as_tensor(
             base_state(base_params, data, base_initial_state),
@@ -615,13 +617,15 @@ class FusedPrep:
         """``(args, kwargs, infeasible)`` of :func:`fused_objective` for a
         ``(B, d)`` theta batch: the tracer's span ``objective.prep``, with
         ``prep.constrain``, ``prep.apply``, ``prep.initial_state`` and
-        ``prep.pack`` (y0, agevec, scal, beff) inside."""
+        ``prep.pack`` (y0, agevec, scal, beff) inside. On the card it
+        enqueues no host-to-device copy and reads nothing back, so a CUDA
+        graph can capture it."""
         with trace.span("objective.prep"):
             with trace.span("prep.constrain"):
                 theta = self.space.constrain(thetas.to(self.dtype), self.mode)
             B = theta.shape[0]
             with trace.span("prep.apply"):
-                prm = self.space.apply(self.base, theta)
+                prm = self.space.apply(self.base, theta, self.scatter)
             with trace.span("prep.initial_state"):
                 y0, infeasible = sepaihrd.initial_state_for_params(
                     prm, self.base_y0)
@@ -655,6 +659,84 @@ class FusedPrep:
         return y0, agevec, scal, beff
 
 
+# K1 value graphs an objective keeps, the least recently used dropped first
+VALUE_GRAPHS = 8
+
+
+class _ValueGraphs:
+    """K1's value call ``value(thetas) -> (B,)`` (prep, K1, mask) replayed
+    as CUDA graphs, one a device, dtype and shape of ``thetas``.
+
+    The first call at a shape runs eagerly (it checks the inputs and warms
+    the allocator and K1); the second captures ``value`` on a static input
+    buffer into the objective's one memory pool; every call from then on
+    copies ``thetas`` into the buffer (a cast as ``.to(dtype)`` is),
+    replays, and returns a clone of the graph's output, so that a result
+    kept by the caller is never overwritten. The graphs share the pool,
+    which is safe because each replay's output is cloned before the next
+    replay on the stream. Host tensors and calls under autograd (grad on
+    and ``thetas`` requiring it) always run eagerly. A failed capture
+    raises. The tracer's counter ``objective.graph`` counts the calls by
+    ``("eager" | "capture" | "replay", B)``; a replay is the span
+    ``objective.replay`` and adds the K1 launches its capture recorded to
+    ``launches``, under the keys the capture saw."""
+
+    def __init__(self, value, dtype: torch.dtype):
+        self.value, self.dtype = value, dtype
+        self.seen = set()
+        self.graphs = collections.OrderedDict()  # key -> (graph, in, out, launches)
+        self.pool = None
+
+    def __call__(self, thetas: torch.Tensor) -> torch.Tensor:
+        key = (thetas.device, thetas.dtype, tuple(thetas.shape))
+        B = int(thetas.shape[0])
+        graphed = thetas.is_cuda and not (torch.is_grad_enabled()
+                                          and thetas.requires_grad)
+        entry = self.graphs.get(key) if graphed else None
+        if entry is not None:
+            self.graphs.move_to_end(key)
+            trace.count("objective.graph", ("replay", B))
+        elif graphed and key in self.seen:
+            entry = self._capture(key)
+            trace.count("objective.graph", ("capture", B))
+        else:
+            ll = self.value(thetas)
+            if graphed:
+                self.seen.add(key)
+            trace.count("objective.graph", ("eager", B))
+            return ll
+        graph, static_in, static_out, launches = entry
+        with trace.span("objective.replay"):
+            static_in.copy_(thetas)
+            graph.replay()
+            ll = static_out.clone()
+        for k, n in launches.items():
+            trace.count("launches", k, n)
+        return ll
+
+    def _capture(self, key):
+        """Capture ``value`` on a new static input of ``key``'s shape; the
+        K1 launches the capture counted are taken back and kept, for each
+        replay to count."""
+        dev, _dtype, shape = key
+        static_in = torch.empty(shape, dtype=self.dtype, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        before = trace.counts("launches")
+        with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self.pool):
+            static_out = self.value(static_in)
+        launches = {k: n - before.get(k, 0)
+                    for k, n in trace.counts("launches").items()
+                    if n != before.get(k, 0)}
+        for k, n in launches.items():
+            trace.count("launches", k, -n)
+        self.graphs[key] = entry = (graph, static_in, static_out, launches)
+        if len(self.graphs) > VALUE_GRAPHS:
+            self.graphs.popitem(last=False)
+        return entry
+
+
 def build_objective_fused(space: ParameterSpace, base_params: SEPAIHRDParams,
                           data: CalibrationData, ts, *, base_initial_state=None,
                           substeps: int = 4, tableau: str = "dopri5",
@@ -666,22 +748,28 @@ def build_objective_fused(space: ParameterSpace, base_params: SEPAIHRDParams,
     apply, initial state and the per-run beta stay in PyTorch; the solve and
     fold run in one launch. Infeasible, NaN or Inf results become
     ``finfo(dtype).min``. ``dtype``/``device`` default to the base
-    parameters'. A call is the tracer's span ``objective``; its mask of
-    infeasible, NaN or Inf rows is ``objective.mask``."""
+    parameters'. On the card, outside autograd, the whole call is replayed
+    as a CUDA graph from its third call at a shape on (:class:`_ValueGraphs`).
+    A call is the tracer's span ``objective``; on an eager or capturing call
+    its mask of infeasible, NaN or Inf rows is ``objective.mask``."""
     dtype = dtype or base_params.dtype
     dev = resolve_device(device or base_params.device)
     prep = FusedPrep(space, base_params, data, ts,
                      base_initial_state=base_initial_state,
                      constraint_mode=constraint_mode, dtype=dtype, device=dev)
 
+    def value(thetas: torch.Tensor) -> torch.Tensor:
+        args, kw, infeasible = prep.kernel_args(thetas)
+        ll = fused_objective(*args, **kw, substeps=substeps, tableau=tableau)
+        with trace.span("objective.mask"):
+            bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
+            return torch.where(bad, torch.full_like(ll, lowest(dtype)), ll)
+
+    graphs = _ValueGraphs(value, dtype)
+
     def loglik_batch(thetas: torch.Tensor) -> torch.Tensor:
         with trace.span("objective"):
-            args, kw, infeasible = prep.kernel_args(thetas)
-            ll = fused_objective(*args, **kw, substeps=substeps,
-                                 tableau=tableau)
-            with trace.span("objective.mask"):
-                bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
-                return torch.where(bad, torch.full_like(ll, lowest(dtype)), ll)
+            return graphs(thetas)
 
     loglik_batch.prep = prep
     return loglik_batch
