@@ -11,9 +11,10 @@ draw as a tensor; a runner asks a draw source for them, step by step:
 - ``swap(i, shape) -> u``, the replica-exchange uniforms of step ``i``.
 
 :class:`SeededRunDraws` makes each of them from a ``torch.Generator`` seeded
-by a pure function of ``(seed, purpose, segment, step)``: a campaign resumed
-at segment ``s`` draws exactly what the uninterrupted one drew there, as the
-JAX package's ``fold_in(key, s)`` does. :class:`GeneratorDraws` reads one
+by a pure function of ``(seed, purpose, segment, step)``
+(:func:`derive_seed`): a campaign resumed at segment ``s`` draws exactly
+what the uninterrupted one drew there, as the JAX package's
+``fold_in(key, s)`` does. :class:`GeneratorDraws` reads one
 generator in call order. The tests hand the runners a third source that
 makes the JAX package's own draws from its keys.
 
@@ -30,14 +31,19 @@ import numpy as np
 import torch
 
 
-def seeded_generator(seed: int, words, device) -> torch.Generator:
-    """A generator on ``device`` seeded by ``(seed, *words)`` through NumPy's
-    ``SeedSequence``: the same words give the same stream on every run."""
+def derive_seed(seed: int, words) -> int:
+    """The generator seed of ``(seed, *words)``, through NumPy's
+    ``SeedSequence``: the same words give the same seed on every run."""
     seed = int(seed)
     s = np.random.SeedSequence([seed & 0xFFFFFFFF, seed >> 32, *words]) \
         .generate_state(2, np.uint32)
+    return (int(s[0]) << 31) ^ int(s[1])
+
+
+def seeded_generator(seed: int, words, device) -> torch.Generator:
+    """A new generator on ``device`` seeded with :func:`derive_seed`."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(s[0]) << 31) ^ int(s[1]))
+    g.manual_seed(derive_seed(seed, words))
     return g
 
 
@@ -80,16 +86,22 @@ class _Draws:
 
 class SeededRunDraws(_Draws):
     """Every draw of segment ``segment`` of a run seeded with ``seed``, from a
-    generator per ``(purpose, segment, step)``."""
+    generator seeded per ``(purpose, segment, step)``: the source keeps one
+    generator a purpose and reseeds it at each use, which gives the bits of
+    a new :func:`seeded_generator` without building one a step."""
 
     def __init__(self, seed: int, segment: int, n: int, d: int,
                  dtype: torch.dtype, device):
         super().__init__(n, d, dtype, device)
         self.seed, self.segment = int(seed), int(segment)
+        self._gens = {}
 
     def _gen(self, purpose, i=0):
-        return seeded_generator(self.seed, (purpose, self.segment, i),
-                                self.device)
+        g = self._gens.get(purpose)
+        if g is None:
+            g = self._gens[purpose] = torch.Generator(device=self.device)
+        g.manual_seed(derive_seed(self.seed, (purpose, self.segment, i)))
+        return g
 
 
 class GeneratorDraws(_Draws):

@@ -52,7 +52,7 @@ import torch
 
 from ..parallel.mesh import LOCAL
 from ..utils.logging import get_logger
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .draws import GeneratorDraws, SeededRunDraws, shard_draws
 from .param_space import ParameterSpace
 
@@ -198,7 +198,22 @@ def mh_step(state: MHState, z: torch.Tensor, u: torch.Tensor,
     it), given its draws: Gaussian proposals ``z (B, d)`` and accept
     uniforms ``u (B,)``; with ``proposal="de"`` also the partner rows ``j,
     k`` (ints in ``[0, B_total/2)``, indices into the frozen half of the
-    global ensemble) and the gamma uniforms ``g_u (B,)``."""
+    global ensemble) and the gamma uniforms ``g_u (B,)``. The step is
+    :func:`mh_propose`, one objective call on the proposals, then
+    :func:`mh_accept`."""
+    proposal, active = mh_propose(state, z, space, cfg, j=j, k=k, g_u=g_u,
+                                  mesh=mesh)
+    return mh_accept(state, proposal, loglik_batch(proposal), u, cfg,
+                     active=active)
+
+
+def mh_propose(state: MHState, z: torch.Tensor, space: ParameterSpace,
+               cfg: MHConfig, *, j: Optional[torch.Tensor] = None,
+               k: Optional[torch.Tensor] = None,
+               g_u: Optional[torch.Tensor] = None, mesh=LOCAL):
+    """The part of :func:`mh_step` before the objective call: the reflected
+    proposals ``(B, d)``, and for DE the mask of the chains that move (None
+    for AM)."""
     B, d = state.x.shape
     dtype = state.x.dtype
     scale = torch.exp(state.log_scale)[:, None]
@@ -226,9 +241,32 @@ def mh_step(state: MHState, z: torch.Tensor, u: torch.Tensor,
         proposal = torch.where(active[:, None], proposal, state.x)
     else:
         proposal = state.x + scale * (z @ state.chol.T)
-    proposal = space.reflect(proposal)
+    return space.reflect(proposal), active
 
-    logp_prop = safe_logp(loglik_batch(proposal))
+
+def rm_gain(step: int) -> float:
+    """The Robbins-Monro gain of the step that brings the count to
+    ``step``: ``min(1 / sqrt(step + 1), 0.1)``, in double."""
+    return min(1.0 / math.sqrt(step + 1.0), 0.1)
+
+
+def mh_accept(state: MHState, proposal: torch.Tensor, logp_prop: torch.Tensor,
+              u: torch.Tensor, cfg: MHConfig, *,
+              active: Optional[torch.Tensor] = None,
+              gamma=None, in_place: bool = False) -> MHState:
+    """The part of :func:`mh_step` after the objective call, given the
+    objective's values ``logp_prop (B,)`` at ``proposal``: the accept test,
+    the new positions and values, each chain's best, the Robbins-Monro
+    scale and the accept count. ``gamma`` is the step's Robbins-Monro gain,
+    by default the Python float :func:`rm_gain` gives; the step graphs pass
+    it as a 0-dim tensor of the state's dtype holding that float, which
+    gives the same bits, as PyTorch rounds a Python scalar to the tensor's
+    dtype. ``in_place`` writes each new field into ``state``'s own tensor
+    (the step graphs' buffers), by the same elementwise ops; every old
+    value is read before its tensor is written."""
+    dtype = state.x.dtype
+    out = (lambda f: getattr(state, f)) if in_place else (lambda f: None)
+    logp_prop = safe_logp(logp_prop)
     log_ratio = logp_prop - state.logp
     # clamp: an f32 uniform hits exactly 0 ~2^-23/draw; log(0) = -inf
     # would unconditionally accept arbitrarily bad proposals
@@ -238,26 +276,149 @@ def mh_step(state: MHState, z: torch.Tensor, u: torch.Tensor,
         # the frozen half would self-accept its unchanged state
         accept = accept & active
 
-    x = torch.where(accept[:, None], proposal, state.x)
-    logp = torch.where(accept, logp_prop, state.logp)
+    x = torch.where(accept[:, None], proposal, state.x, out=out("x"))
+    logp = torch.where(accept, logp_prop, state.logp, out=out("logp"))
 
     better = logp > state.best_logp
-    best_x = torch.where(better[:, None], x, state.best_x)
-    best_logp = torch.where(better, logp, state.best_logp)
+    best_x = torch.where(better[:, None], x, state.best_x, out=out("best_x"))
+    best_logp = torch.where(better, logp, state.best_logp,
+                            out=out("best_logp"))
 
     step = state.step + 1
     if cfg.adapt_scale:
-        gamma = min(1.0 / math.sqrt(step + 1.0), 0.1)
+        if gamma is None:
+            gamma = rm_gain(step)
         delta = accept.to(dtype) - cfg.target_acceptance_rate
         if active is not None:
             delta = torch.where(active, delta, torch.zeros_like(delta))
-        log_scale = torch.clamp(state.log_scale + gamma * delta, -6.9, 2.3)
+        log_scale = torch.clamp(state.log_scale + gamma * delta, -6.9, 2.3,
+                                out=out("log_scale"))
     else:
         log_scale = state.log_scale
+    accept_count = torch.add(state.accept_count, accept.to(torch.int32),
+                             out=out("accept_count"))
 
     return state._replace(
         x=x, logp=logp, log_scale=log_scale, best_x=best_x, best_logp=best_logp,
-        accept_count=state.accept_count + accept.to(torch.int32), step=step)
+        accept_count=accept_count, step=step)
+
+
+# eager AM steps at a (device, dtype, chain count) before the step graphs
+# capture: they warm the allocator, cuBLAS and the kernels
+EAGER_STEPS = 2
+# the state fields the step graphs hold in fixed buffers
+_BUFFERED = ("chol", "x", "logp", "log_scale", "best_x", "best_logp",
+             "accept_count")
+
+
+class _StepBuffers:
+    """An AM step's state, draws and gain in fixed tensors, and the two
+    parts of :func:`mh_step` on them: what :class:`_StepGraphs` captures.
+    :meth:`accept` writes the new state into the buffers."""
+
+    def __init__(self, state: MHState, space: ParameterSpace, cfg: MHConfig):
+        self.space, self.cfg = space, cfg
+        self.state = state._replace(**{
+            f: torch.empty_like(getattr(state, f),
+                                memory_format=torch.contiguous_format)
+            for f in _BUFFERED})
+        self.z = torch.empty_like(state.x)
+        self.u = torch.empty_like(state.logp)
+        self.lp = torch.empty_like(state.logp)   # the objective's values
+        self.gamma = torch.empty((), dtype=state.x.dtype,
+                                 device=state.x.device)
+
+    def load(self, state: MHState, z: torch.Tensor, u: torch.Tensor):
+        """Copy in the fields of ``state`` held outside the buffers (a new
+        segment's state, a new covariance factor), the draws and the gain
+        of ``state``'s next step."""
+        for f in _BUFFERED:
+            src, buf = getattr(state, f), getattr(self.state, f)
+            if src is not buf:
+                buf.copy_(src)
+        self.z.copy_(z)
+        self.u.copy_(u)
+        if self.cfg.adapt_scale:
+            self.gamma.fill_(rm_gain(state.step + 1))
+
+    def propose(self) -> torch.Tensor:
+        return mh_propose(self.state, self.z, self.space, self.cfg)[0]
+
+    def accept(self, proposal: torch.Tensor):
+        """:func:`mh_accept` on the objective's values in ``lp``, in place."""
+        mh_accept(self.state, proposal, self.lp, self.u, self.cfg,
+                  gamma=self.gamma, in_place=True)
+
+    def result(self, state: MHState) -> MHState:
+        """The state after ``state``'s step: the buffers, which the next step
+        overwrites."""
+        return self.state._replace(cov=state.cov, step=state.step + 1)
+
+
+class _StepGraphs:
+    """The single-rank AM step (:func:`mh_step`) replayed as two CUDA graphs
+    a device, dtype and chain count, around the objective call, which stays
+    a Python call: ``before`` (:func:`mh_propose`) writes the proposals,
+    ``after`` (:func:`mh_accept`) the new state, into fixed buffers
+    (:class:`_StepBuffers`).
+
+    The first :data:`EAGER_STEPS` steps at a key run :func:`mh_step`; the
+    next captures both parts on the key's buffers; every step from then on
+    copies in what the state holds outside the buffers, its draws and its
+    gain, replays ``before``, calls ``loglik_batch`` once on the proposals
+    (through whatever wraps it), copies the values in and replays
+    ``after``. The state returned holds the buffers, which the next step
+    overwrites: a caller copies what it keeps (:meth:`release`). Host
+    tensors run eagerly. The tracer's counter ``mh.graph`` counts the steps
+    by ``("eager" | "capture" | "replay", B)``, spans on or off; a graphed
+    step is the span ``mh.replay``."""
+
+    def __init__(self, space: ParameterSpace, cfg: MHConfig):
+        self.space, self.cfg = space, cfg
+        self.eager = {}     # key -> eager steps so far
+        self.graphs = {}    # key -> (buffers, before, proposals, after)
+
+    def __call__(self, state: MHState, z: torch.Tensor, u: torch.Tensor,
+                 loglik_batch: Callable) -> MHState:
+        x = state.x
+        B = int(x.shape[0])
+        key = (x.device, x.dtype, B)
+        entry = self.graphs.get(key) if x.is_cuda else None
+        if entry is not None:
+            count("mh.graph", ("replay", B))
+        elif x.is_cuda and self.eager.get(key, 0) >= EAGER_STEPS:
+            entry = self.graphs[key] = self._capture(state)
+            count("mh.graph", ("capture", B))
+        else:
+            if x.is_cuda:
+                self.eager[key] = self.eager.get(key, 0) + 1
+            count("mh.graph", ("eager", B))
+            return mh_step(state, z, u, self.space, loglik_batch, self.cfg)
+        bufs, before, proposal, after = entry
+        with span("mh.replay"):
+            bufs.load(state, z, u)
+            before.replay()
+            bufs.lp.copy_(loglik_batch(proposal))
+            after.replay()
+        return bufs.result(state)
+
+    def _capture(self, state: MHState):
+        bufs = _StepBuffers(state, self.space, self.cfg)
+        before, after = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.device(state.x.device):
+            with torch.cuda.graph(before):
+                proposal = bufs.propose()
+            with torch.cuda.graph(after):
+                bufs.accept(proposal)
+        return bufs, before, proposal, after
+
+    def release(self, state: MHState) -> MHState:
+        """``state`` with copies of the buffers it holds."""
+        held = {id(getattr(e[0].state, f)) for e in self.graphs.values()
+                for f in _BUFFERED}
+        return state._replace(**{f: getattr(state, f).clone()
+                                 for f in _BUFFERED
+                                 if id(getattr(state, f)) in held})
 
 
 def adapt_covariance(state: MHState, cfg: MHConfig, mesh=LOCAL) -> MHState:
@@ -301,8 +462,14 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
     ``draws.partners(i)`` for DE). ``progress_fn(step, accept_rate,
     best_logp, mean_scale)`` is called every ``report_interval`` blocks, the
     only host reads of the run. The tracer's spans of a run: ``mh.draws``
-    (a step's draws), ``mh.step``, ``mh.adapt_cov`` and ``mh.finish`` (the
-    stack and gather at the end).
+    (a step's draws), ``mh.step`` (holding ``mh.replay`` where the step
+    replays), ``mh.adapt_cov`` and ``mh.finish`` (the stack and gather at
+    the end).
+
+    Single-rank AM steps on the card replay as CUDA graphs
+    (:class:`_StepGraphs`) from the third step at a chain count on; the
+    samples and the final state a run returns are copies of the graphs'
+    buffers. DE-MC and a mesh of more than one rank step eagerly.
 
     On a ``mesh`` the state is this rank's chains and ``draws`` gives its
     rows; the progress numbers are reduced over ranks (a collective: pass
@@ -319,6 +486,9 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
     adapt_every_blocks = max(1, cfg.adaptation_period // thin)
     report_every = max(1, cfg.report_interval)
     de = cfg.proposal == "de"
+    graphs = None if de or mesh.world_size > 1 else _StepGraphs(space, cfg)
+    # the step graphs' buffers change at the next step: keep copies
+    keep = (lambda t: t) if graphs is None else torch.clone
 
     def run(state0: MHState, draws) -> MHResult:
         state = state0
@@ -332,8 +502,11 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
                     if de:
                         j, k, g_u = draws.partners(i)
                 with span("mh.step"):
-                    state = mh_step(state, z, u, space, loglik_batch, cfg,
-                                    j=j, k=k, g_u=g_u, mesh=mesh)
+                    if graphs is not None:
+                        state = graphs(state, z, u, loglik_batch)
+                    else:
+                        state = mh_step(state, z, u, space, loglik_batch, cfg,
+                                        j=j, k=k, g_u=g_u, mesh=mesh)
             if not de and state.step > cfg.burn_in and \
                     (state.step // thin) % adapt_every_blocks == 0:
                 with span("mh.adapt_cov"):
@@ -345,9 +518,11 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
                             float(mesh.pmax(torch.max(state.best_logp))),
                             float(mesh.mean(torch.exp(state.log_scale))))
             if cfg.store_samples:
-                samples.append(state.x)
-                logps.append(state.logp)
+                samples.append(keep(state.x))
+                logps.append(keep(state.logp))
         with span("mh.finish"):
+            if graphs is not None:
+                state = graphs.release(state)
             return _finish(state, samples, logps, cfg, mesh)
 
     return run
