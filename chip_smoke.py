@@ -13,11 +13,12 @@
     python3 chip_smoke.py --recovery  # build, then phase 29 only (no ok line)
     python3 chip_smoke.py --tableaus  # build, then phase 30 only (no ok line;
                                       # exits 1 on a miss, after the timings)
+    python3 chip_smoke.py --prep   # build, then phase 2c only (no ok line)
 
 Phases (any failure exits non-zero before the final line):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels of ``mmidv1_tpu_torch/csrc`` from source, one
-     nvcc per source, all at once (K1; K2 and K3);
+     nvcc per source, all at once (K1; K2 and K3; the prep and the mask);
   2b. the forward kernels K1 and K2 in their two regimes (split: the
      infection subsystem on producer warps, the linear rows and the fold on
      consumer warps; wide: one thread per (chain, age)): ptxas (registers,
@@ -31,6 +32,16 @@ Phases (any failure exits non-zero before the final line):
      each the ns per dependent RK stage beside the chain bound (stages x the
      cycles a stage of the recurrence's longest dependency cycle / the SM
      clock);
+  2c. the objective's prep and mask kernels (csrc/sepaihrd_prep.cu): the
+     prep against its plain version (``FusedPrep._prep_plain``) at 1024 and
+     8192 float32 chains under REFLECT, 512 and 64 under CLAMP and the
+     float64 MAP re-selection's 257 over the float32 space, every output
+     equal to the bit, reflected, clamped and NaN rows included; the mask
+     against ``torch.where`` on NaN, +-Inf and infeasible rows; both timed
+     in CUDA graphs beside their byte bounds and their plain versions. Every
+     path driven below (phases 5-29) also checks, from its counts set to 0
+     just before, one prep and one mask launch for each K1 or K2 launch at
+     each chain count;
   3. hold K1 (the fused SEPAIHRD objective) against its plain PyTorch
      version on the card, at the full Spain-2020 width (62 parameters,
      325 daily intervals, 7 schedule runs): B = 8192 chains in float64
@@ -1134,6 +1145,13 @@ def launch_counts():
             out["k3_kernels"] = trace.total("k3.kernels")
         else:
             out[f"{kernel}_batch_calls"] = by_batch
+    # the objective's prep and mask kernels, by chain count
+    for kernel in ("prep", "mask"):
+        by_batch = {}
+        for key, n in _launches(kernel).items():
+            by_batch[key[-1]] = by_batch.get(key[-1], 0) + n
+        out[kernel] = sum(by_batch.values())
+        out[f"{kernel}_batch_calls"] = by_batch
     return out
 
 
@@ -1143,6 +1161,36 @@ def pick_counts(*keys):
     return {k: c[k] for k in keys}
 
 
+# every driven path's prep and mask launches, by label (the kernels line)
+OBJECTIVE_PATHS = {}
+OBJECTIVE_KEYS = ("prep", "mask", "prep_batch_calls", "mask_batch_calls")
+
+
+def objective_launches(label, counts):
+    """Fails unless every objective call of the path just driven (counted
+    from 0 into ``counts``, :func:`launch_counts`) launched the prep kernel
+    and the mask kernel once beside its K1 or K2 launch, at each chain
+    count; records the path's prep and mask launches."""
+    want = {}
+    for kernel in ("k1", "k2"):
+        for B, by_regime in counts[f"{kernel}_batch_calls"].items():
+            want[B] = want.get(B, 0) + sum(by_regime.values())
+    if counts["prep_batch_calls"] != want or \
+            counts["mask_batch_calls"] != want:
+        fail(f"{label}: prep / mask launches by chain count "
+             f"{counts['prep_batch_calls']} / {counts['mask_batch_calls']}, "
+             f"expected one each a K1 or K2 launch: {want}")
+    OBJECTIVE_PATHS[label] = {k: counts[k] for k in OBJECTIVE_KEYS}
+    return counts
+
+
+def path_counts(label, *keys):
+    """``keys`` of :func:`launch_counts` and the prep and mask launches of
+    the path ``label`` just driven, checked by :func:`objective_launches`."""
+    c = objective_launches(label, launch_counts())
+    return {k: c[k] for k in keys + OBJECTIVE_KEYS}
+
+
 def read_counts(path, B, crossover):
     """The launch counts of the path just driven with ``B`` float32 chains.
     Fails unless every K3 call ran in the one regime that the rule picks at
@@ -1150,7 +1198,8 @@ def read_counts(path, B, crossover):
     ``B``, whose forced calls do not count here)."""
     row = next(r for r in crossover if r["B"] == B and r["dtype"] == "float32")
     regime = row["picked"]
-    counts = dict(pick_counts("k1", "k2", "k1_regime_calls", "k2_regime_calls",
+    counts = dict(path_counts(path, "k1", "k2", "k1_regime_calls",
+                              "k2_regime_calls",
                               "k3", "k3_kernels", "k3_regime_calls"),
                   k3_regime=regime,
                   k3_kernels_per_call=row[f"regime{regime}_kernels"])
@@ -1344,7 +1393,8 @@ def primary_executable(cache, card):
                            "--scale", str(MAIN_SCALE), "--output-dir", out_dir]
                           + common)
     wall = time.perf_counter() - t0
-    counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+    counts = path_counts("hillmcmc (sepaihrd_main)", "k1", "k1_regime_calls",
+                         "k1_batch_calls")
     by_batch = counts["k1_batch_calls"]
     hill, steps = s["hill"], s["mh_steps"]
     ran = sorted({1, hill["cloud_size"], hill["max_backtrack"],
@@ -1552,7 +1602,8 @@ def bench_phase(card):
          str(iterations), "--repeats", str(repeats), "--json", "--device",
          "cuda", "--project-root", HERE])
     wall = time.perf_counter() - t0
-    counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+    counts = path_counts("bench (benchmark_main --mode all)", "k1",
+                         "k1_regime_calls", "k1_batch_calls")
     by_batch = counts["k1_batch_calls"]
     print(json.dumps(res), flush=True)
     bad = [k for k, v in res.items()
@@ -1591,7 +1642,8 @@ def drive_campaign(name, argv, card, expected):
     t0 = time.perf_counter()
     meta = production_campaign.run(argv)
     wall = time.perf_counter() - t0
-    counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+    counts = path_counts(f"campaign {name}", "k1", "k1_regime_calls",
+                         "k1_batch_calls")
     by_batch = counts["k1_batch_calls"]
     if forward_pick(CAMPAIGN_CHAINS) != 2 or set(by_batch) != {CAMPAIGN_CHAINS} \
             or by_batch[CAMPAIGN_CHAINS] != {2: expected}:
@@ -2076,7 +2128,8 @@ def pso_variants_phase(cache, card):
         res = run_pso(ll, pipe.space, cfg, generator=gen, theta0=pipe.theta0)
         best = float(res.best_f)
         wall = time.perf_counter() - t0
-        counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+        counts = path_counts(f"pso {variant.name}", "k1", "k1_regime_calls",
+                             "k1_batch_calls")
         by_batch = counts["k1_batch_calls"]
         in_bounds = bool(pipe.space.in_bounds(res.best_x))
         print(f"[pso] {variant.name}: {PSO_SWARM} particles x {cfg.iterations} "
@@ -2681,6 +2734,8 @@ def parallel_phase(card):
             par_expect_regimes(f"(g) {label} rank {rank}", t["counts"], B)
             out["launches"][f"(g) AM-MH f32 {label} rank {rank} B={B}"] = \
                 t["counts"]
+    for label, counts in out["launches"].items():
+        objective_launches(f"parallel {label}", counts)
     out["seconds"] = time.perf_counter() - t_phase
     shutil.rmtree(work, ignore_errors=True)
     print(f"[parallel] phase 22: {out['seconds']:.1f} s on {card}",
@@ -2725,7 +2780,7 @@ def drive_main(module, argv, label, expect_rc=0):
     seconds = time.perf_counter() - t0
     if rc != expect_rc:
         fail(f"{label}: exit code {rc}, expected {expect_rc}")
-    counts = launch_counts()
+    counts = objective_launches(label, launch_counts())
     print(f"[{label}] {seconds:.1f} s; K1 {counts['k1_batch_calls']}, K2 "
           f"{counts['k2_batch_calls']}, K3 {counts['k3']} calls "
           f"{counts['k3_regime_calls']}", flush=True)
@@ -3198,7 +3253,7 @@ def curvature_phase(tmp, card, host, alone):
     t0 = time.perf_counter()
     rows = energy_error_probe.run(["--trace", LOGITSEED])
     e_secs = time.perf_counter() - t0
-    cnt = launch_counts()
+    cnt = objective_launches("energy_error_probe", launch_counts())
     expect_gradients("energy_error_probe", cnt, 64)
     if cnt["k2"] != 5 * 130 or any(r["finite"] < 1 for r in rows):
         fail(f"energy_error_probe: {cnt['k2']} K2 calls, rows {rows}")
@@ -3238,7 +3293,7 @@ def serovalid_chain_phase(tmp, card, campaign_dirs):
                                    "--out", os.path.join(tmp,
                                                          "sv_pipeline")])
     secs = time.perf_counter() - t0
-    cnt = launch_counts()
+    cnt = objective_launches("serovalid_pipeline", launch_counts())
     if not (cnt["k1"] >= 1 and cnt["k2"] >= 1 and cnt["k3"] == cnt["k2"]):
         fail(f"serovalid_pipeline: launches {cnt}")
     row = meta["reference_bounds_map"]
@@ -3941,7 +3996,8 @@ def recovery_phase(card):
         device="cuda").manual_seed(rec.R1_CALIBRATION_SEED))
     best = res.best_theta.cpu().numpy()
     best_logl = float(res.best_logl)
-    r1_counts = pick_counts("k1", "k1_regime_calls", "k1_batch_calls")
+    r1_counts = path_counts("recovery R1", "k1", "k1_regime_calls",
+                            "k1_batch_calls")
     ll_true = float(ll_c(p["theta_true"][None])[0])
     samples = res.samples.cpu().numpy()
     median = float(np.median(samples[-100:].reshape(-1, 3)[:, 0]))
@@ -3992,8 +4048,9 @@ def recovery_phase(card):
     nres = rec.r3_nuts(None, q, value_and_grad_batch=vg)
     best_logp = float(nres.best_logp)
     seconds = time.perf_counter() - t0
-    r3_counts = pick_counts("k1", "k2", "k2_regime_calls", "k2_batch_calls",
-                            "k3", "k3_kernels", "k3_regime_calls")
+    r3_counts = path_counts("recovery R3", "k1", "k2", "k2_regime_calls",
+                            "k2_batch_calls", "k3", "k3_kernels",
+                            "k3_regime_calls")
     calls = vg.calls
     ll0 = float(vg.value_batch(q["theta0"][None])[0])
     nb, cfg = rec.R3_CHAINS, rec.R3_NUTS
@@ -4484,6 +4541,188 @@ def tableau_phase(cache, strict=True):
     return out
 
 
+# ---------------------------------------------------------------- phase 2c
+# The objective's prep and mask kernels (csrc/sepaihrd_prep.cu) at the
+# shapes the paths give them: (case, B, objective dtype, space dtype, mode)
+PREP_CASES = (
+    ("float32 B=1024 REFLECT (AM-MH, am1024-dopri5x4)", 1024, "float32",
+     "float32", "reflect"),
+    ("float32 B=8192 REFLECT (campaigns, am8192-cashkarp3)", 8192, "float32",
+     "float32", "reflect"),
+    ("float32 B=512 CLAMP (PSO)", 512, "float32", "float32", "clamp"),
+    ("float32 B=64 CLAMP (NUTS, MALA)", 64, "float32", "float32", "clamp"),
+    ("float64 B=257 REFLECT, float32 space (MAP re-selection)", 257,
+     "float64", "float32", "reflect"),
+)
+
+
+def graph_ms(fn, launches=20, reps=10):
+    """The card's time a call of ``fn`` in ms: ``launches`` calls captured
+    in one CUDA graph, replayed ``reps`` times after a warm-up (CUDA
+    events), so that no launch waits on the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
+
+
+def prep_thetas(space, theta0, B, dtype, seed):
+    """``B`` thetas at 0.05 sigma around ``theta0``; rows 1-4 past the
+    upper bounds by 0.37 and 3.2 widths, past the lower bounds by 2.6 and
+    on them; ``beta_6`` NaN on row B // 2 and the last row all NaN."""
+    import numpy as np
+    import torch
+    lo, hi, sig, t0 = (np.asarray(t.double().cpu()) for t in (
+        space.lower, space.upper, space.sigmas, theta0))
+    rng = np.random.default_rng(seed)
+    x = t0[None, :] + 0.05 * sig[None, :] * rng.standard_normal((B, t0.size))
+    width = hi - lo
+    for row, v in ((1, hi + 0.37 * width), (2, hi + 3.2 * width),
+                   (3, lo - 2.6 * width), (4, lo)):
+        if row < B - 1:
+            x[row] = v
+    x[B // 2, 5] = np.nan
+    x[B - 1] = np.nan
+    return torch.as_tensor(x, dtype=dtype, device="cuda")
+
+
+def prep_phase(cache):
+    """Phase 2c: the prep kernel against its plain version at each of
+    ``PREP_CASES`` (every output equal to the bit, NaN and reflected or
+    clamped rows included; one ``prep`` launch counted a call), the mask
+    kernel against ``torch.where`` on NaN, +-Inf and infeasible rows, both
+    timed (CUDA graphs of 20 launches; the prep on the rows but the NaN
+    ones, B of them, and on all; the plain versions eager and graphed, the
+    mask's ``torch.where`` as its library time) beside their byte bounds."""
+    import numpy as np
+    import torch
+    from mmidv1_tpu_torch.calibration.objective import lowest
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.ops import sepaihrd_fused as sf
+    from mmidv1_tpu_torch.utils import trace
+
+    def same_bits(a, b):
+        if a.dtype == torch.bool:
+            return bool(torch.equal(a, b))
+        view = torch.int64 if a.element_size() == 8 else torch.int32
+        return a.shape == b.shape and bool(torch.equal(a.view(view),
+                                                       b.view(view)))
+
+    prep_rows, mask_rows = [], []
+    for i, (case, B, dtype_name, space_dtype, mode) in enumerate(PREP_CASES):
+        dtype = getattr(torch, dtype_name)
+        if space_dtype not in cache:
+            cache[space_dtype] = load_spain_pipeline(
+                HERE, dtype=getattr(torch, space_dtype), device="cuda")
+        pipe = cache[space_dtype]
+        prep = sf.FusedPrep(pipe.space, pipe.params.to("cuda", dtype),
+                            pipe.data, pipe.ts, constraint_mode=mode,
+                            dtype=dtype, device=torch.device("cuda"))
+        x = prep_thetas(pipe.space, pipe.theta0, B, dtype, seed=500 + i)
+        zero_counts()
+        got_args, got_inf = prep._prep_kernel(x)
+        if trace.counts("launches", ("prep",)) != {(mode, B): 1}:
+            fail(f"prep {case}: launches {trace.counts('launches')}")
+        want_args, want_inf = prep._prep_plain(x)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("y0", "agevec", "scal", "beff", "infeasible"),
+                              got_args + (got_inf,), want_args + (want_inf,)):
+            if not (a.is_contiguous() and same_bits(a, b)):
+                fail(f"prep {case}: {name} differs from the plain version")
+        nan_rows = torch.isnan(got_args[2]).any(dim=0).nonzero().flatten()
+        if nan_rows.tolist() != [B - 1]:
+            fail(f"prep {case}: NaN scal on rows {nan_rows.tolist()}, "
+                 f"expected the NaN row {B - 1} alone")
+        elem = x.element_size()
+        R = got_args[3].shape[0]
+        nbytes = (x.numel() + sum(a.numel() for a in got_args)) * elem \
+            + prep.table.numel() * 8 + B
+        # timed on the same rows without the NaN ones (no sampler proposes
+        # one, and a NaN row takes several times as long), and with them
+        finite = x[~torch.isnan(x).any(dim=1)][torch.arange(B) % (B - 2)]
+        row = dict(case=case, B=B, dtype=dtype_name, space_dtype=space_dtype,
+                   mode=mode, n_runs=R, bit_equal=True,
+                   ms=graph_ms(lambda: prep._prep_kernel(finite)),
+                   nan_rows_ms=graph_ms(lambda: prep._prep_kernel(x)),
+                   plain_ms=cuda_ms(lambda: prep._prep_plain(x), reps=10),
+                   plain_graph_ms=graph_ms(lambda: prep._prep_plain(x)),
+                   bytes=nbytes, bound_ms=nbytes / PEAK_BYTES * 1e3,
+                   bound_by="bytes")
+        print(f"[prep] {case}: y0, agevec, scal, beff and infeasible equal "
+              f"to the bit; kernel {row['ms'] * 1e3:.2f} us (graphed; "
+              f"{row['nan_rows_ms'] * 1e3:.2f} with the NaN rows), "
+              f"plain {row['plain_ms']:.3f} ms eager, "
+              f"{row['plain_graph_ms'] * 1e3:.1f} us graphed; bound "
+              f"{row['bound_ms'] * 1e3:.3f} us ({nbytes} bytes)", flush=True)
+        prep_rows.append(row)
+
+        ll = torch.as_tensor(-1e5 * np.random.default_rng(i).random(B),
+                             dtype=dtype, device="cuda")
+        inf = got_inf.clone()
+        inf[:: 7] = True
+        for r, v in ((2, float("nan")), (3, float("inf")), (5, -float("inf"))):
+            if r < B:
+                ll[r] = v
+                inf[r] = False
+        zero_counts()
+        got = sf.mask_values(ll, inf)
+        if trace.counts("launches", ("mask",)) != {(B,): 1}:
+            fail(f"mask {case}: launches {trace.counts('launches')}")
+        want = sf._mask_where(ll, inf)
+        floor = lowest(dtype)
+        bad = inf | torch.isnan(ll) | torch.isinf(ll)
+        if not same_bits(got, want) or not bool((got[bad] == floor).all()):
+            fail(f"mask {case}: differs from torch.where")
+        nbytes = B * (2 * elem + 1)
+        mrow = dict(case=case, B=B, dtype=dtype_name, masked=int(bad.sum()),
+                    bit_equal=True,
+                    ms=graph_ms(lambda: sf._mask_kernel(ll, inf)),
+                    plain_ms=cuda_ms(lambda: sf._mask_where(ll, inf), reps=10),
+                    library_ms=graph_ms(lambda: sf._mask_where(ll, inf)),
+                    bytes=nbytes, bound_ms=nbytes / PEAK_BYTES * 1e3,
+                    bound_by="bytes")
+        print(f"[mask] {case}: {mrow['masked']} rows masked (NaN, +-Inf, "
+              f"infeasible), equal to torch.where to the bit; kernel "
+              f"{mrow['ms'] * 1e3:.2f} us (graphed), torch.where "
+              f"{mrow['library_ms'] * 1e3:.2f} us graphed, "
+              f"{mrow['plain_ms'] * 1e3:.1f} us eager; bound "
+              f"{mrow['bound_ms'] * 1e3:.4f} us", flush=True)
+        mask_rows.append(mrow)
+    zero_counts()
+    return dict(prep=prep_rows, mask=mask_rows)
+
+
+def prep_kernels(p2c, paths=None):
+    """The prep and mask kernels' entries of the kernels line: the
+    numbers of the main path's shape (B = 1024 float32), every case under
+    ``configs``, the launches of each driven path (``OBJECTIVE_PATHS``)."""
+    paths = OBJECTIVE_PATHS if paths is None else paths
+    out = []
+    for name, kern, rows, lib in (
+            ("sepaihrd_prep", "prep", p2c["prep"], False),
+            ("sepaihrd_mask", "mask", p2c["mask"], True)):
+        head = rows[0]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "mmidv1_tpu_torch/csrc/sepaihrd_prep.cu",
+            "replaces": None, "launches": sum(p[kern] for p in paths.values()),
+            "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"] if lib else None,
+            "kernels_per_call": 1, "shape": f"B={head['B']} {head['dtype']}",
+            "paths": {label: {k: p[k] for k in (kern, f"{kern}_batch_calls")}
+                      for label, p in paths.items()},
+            "configs": rows})
+    return out
+
+
 def main():
     if "--host-refs" in sys.argv[1:]:
         sys.path.insert(0, HERE)
@@ -4500,6 +4739,7 @@ def main():
     probes_only = "--probes" in sys.argv[1:]
     recovery_only = "--recovery" in sys.argv[1:]
     tableaus_only = "--tableaus" in sys.argv[1:]
+    prep_only = "--prep" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -4523,11 +4763,11 @@ def main():
     # 2. build every kernel from source (one nvcc per source, all at once)
     from mmidv1_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    secs = _build.build(["sepaihrd_fused", "sepaihrd_adjoint"])
+    secs = _build.build(["sepaihrd_fused", "sepaihrd_adjoint", "sepaihrd_prep"])
     results["build_seconds"] = secs
     print(f"[build] {secs} (wall {time.perf_counter() - t0:.1f}s)", flush=True)
     usage = []
-    for src in ("sepaihrd_fused", "sepaihrd_adjoint"):
+    for src in ("sepaihrd_fused", "sepaihrd_adjoint", "sepaihrd_prep"):
         report = os.path.join(_build.BUILD_DIR, f"{src}.ptxas.txt")
         if not os.path.exists(report):
             continue
@@ -4545,6 +4785,19 @@ def main():
                                                 "sepaihrd_adjoint.ptxas.txt"))
 
     cache = {}
+    if prep_only:
+        p2c = results["prep"] = prep_phase(cache)
+        kernels = results["kernels"] = prep_kernels(p2c, {})
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_smoke_prep.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print(json.dumps({"kernels": [
+            {k: v for k, v in kern.items() if k not in ("configs", "paths")}
+            for kern in kernels]}, separators=(",", ":")), flush=True)
+        print("chip_smoke --prep: the prep and mask kernels held and timed; "
+              "run without arguments for the whole check", flush=True)
+        return 0
     if fwd_only:
         results["forward"] = forward_phases(cache, _build.BUILD_DIR)
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
@@ -4652,6 +4905,9 @@ def main():
     # 2b. the forward kernels in both regimes
     fwd = results["forward"] = forward_phases(cache, _build.BUILD_DIR)
 
+    # 2c. the objective's prep and mask kernels
+    p2c = results["prep"] = prep_phase(cache)
+
     # 3. kernel vs plain version on the card
     cases = []
     for dtype_name, tol in FWD_TOL.items():
@@ -4694,7 +4950,8 @@ def main():
         x64=False, seed=0, device="cuda", root=HERE,
         out=os.path.join(HERE, "chiprun_out", "chip_smoke_calibration"),
         log=lambda m: print(f"[main] {m}", flush=True))
-    counts = pick_counts("k1", "k1_regime_calls")
+    counts = path_counts("psomcmc (calibrate_spain) B=1024", "k1",
+                         "k1_regime_calls")
     launches, k1_by_regime = counts["k1"], counts["k1_regime_calls"]
     k1_regime = forward_pick(1024)
     results["main_path"] = dict(summary, launches=launches,
@@ -4976,16 +5233,20 @@ def main():
         "checked_launches": {checked: {k: p30_counts[k] for k in (
             "k3", "k3_kernels", "k3_regime_calls", "k3_forced_calls")}},
         "configs": [main64["k3_check"]] + k3_cases + new_cfgs["k3"]}]
+    kernels += prep_kernels(p2c)
     results["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=2, default=str)
     print(card, flush=True)
-    # compact: every path of every kernel is listed on this one line; the
-    # per-configuration checks, regimes and crossovers are in the JSON file
+    # compact: every path of K1, K2 and K3 is listed on this one line; the
+    # per-configuration checks, regimes and crossovers, and the prep's and
+    # the mask's paths (the same calls as K1's and K2's) are in the JSON file
     print(json.dumps({"kernels": [
         {k: v for k, v in kern.items()
-         if k not in ("configs", "by_regime", "crossover")}
+         if k not in ("configs", "by_regime", "crossover")
+         and not (k == "paths" and kern["name"] in ("sepaihrd_prep",
+                                                    "sepaihrd_mask"))}
         for kern in kernels]}, separators=(",", ":")), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,16 +150,13 @@ class ParameterSpace:
 
     # --- pure functions on (..., d) batches --------------------------------
 
-    def apply(self, base: SEPAIHRDParams, theta: torch.Tensor,
-              table=None) -> SEPAIHRDParams:
+    def apply(self, base: SEPAIHRDParams, theta: torch.Tensor) -> SEPAIHRDParams:
         """Scatter a ``(..., d)`` theta batch into fresh parameters whose
         calibrated fields carry the batch dimensions. Values are copied
-        exactly (index scatter, no arithmetic). ``table`` is
-        :meth:`scatter_table` of theta's device; without it the positions
-        are Python lists, which each call copies to the device."""
+        exactly (index scatter, no arithmetic)."""
         batch = theta.shape[:-1]
         updates = {}
-        for field, fidx, tidx in table or self.scatter_table():
+        for field, fidx, tidx in self.scatter_table():
             cur = getattr(base, field)
             if fidx is None:  # scalar field: exactly one theta entry
                 updates[field] = theta[..., tidx].to(cur.dtype)
@@ -169,16 +166,12 @@ class ParameterSpace:
                 updates[field] = new
         return base.replace(**updates)
 
-    def scatter_table(self, device=None) -> Tuple:
+    def scatter_table(self) -> Tuple:
         """:meth:`apply`'s positions, a ``(field, field positions, theta
         positions)`` per field: a scalar field's are ``None`` and one int,
-        a vector field's two lists, or with ``device`` two int64 tensors
-        held there (so the scatter enqueues no host-to-device copy, as a
-        CUDA graph capture requires)."""
-        pos = (lambda x: x) if device is None else (
-            lambda x: torch.tensor(x, dtype=torch.int64, device=device))
+        a vector field's two lists."""
         return tuple((field, None, tidx[0]) if fidx[0] == -1
-                     else (field, pos(fidx), pos(tidx))
+                     else (field, fidx, tidx)
                      for field, (fidx, tidx) in self._scatter.items())
 
     def extract(self, params: SEPAIHRDParams) -> torch.Tensor:
@@ -201,13 +194,19 @@ class ParameterSpace:
         ``torch.clamp`` would pass all of it."""
         return torch.minimum(torch.maximum(theta, self.lower), self.upper)
 
+    def reflect_widths(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(w, degenerate)`` of :meth:`reflect`: each coordinate's width
+        between its bounds, 1 where that width is not positive, and where
+        it is not."""
+        width = self.upper - self.lower
+        degenerate = width <= 0
+        return torch.where(degenerate, torch.ones_like(width), width), degenerate
+
     def reflect(self, theta: torch.Tensor) -> torch.Tensor:
         """MCMC_REFLECT constraint mode: reflect off bounds (reference
         ``reflectBound``, :302-313), preserving detailed balance."""
         lo, hi = self.lower, self.upper
-        width = hi - lo
-        degenerate = width <= 0
-        w = torch.where(degenerate, torch.ones_like(width), width)
+        w, degenerate = self.reflect_widths()
         # torch.remainder takes the sign of the divisor, as jnp.mod does
         y = torch.remainder(theta - lo, 2.0 * w)
         y = torch.where(y < 0, y + 2.0 * w, y)

@@ -276,15 +276,20 @@ def infer_initial_state(
     return torch.stack([S0, E0, P0, A0, I0, H0, ICU0, R0, D0, CumH0, CumICU0])
 
 
+def age_fraction(N: torch.Tensor) -> torch.Tensor:
+    """Each age group's share of the population ``N (..., A)`` (0 for an
+    empty population): how run-up seeding spreads ``seed_exposed``."""
+    total = torch.sum(N, dim=-1, keepdim=True)
+    return torch.where(total > 0, N / total, torch.zeros_like(N))
+
+
 def runup_seeded_state(params: SEPAIHRDParams, base_state=None) -> torch.Tensor:
     """Run-up seeding: E = seed_exposed * age_fraction at t = -runup_days, all
     other non-S compartments zero, S = N - E (reference ``main.cpp:274-316``).
     Returns ``(..., 11, A)`` with the batch shape of ``seed_exposed``."""
     del base_state
     N = params.N
-    total = torch.sum(N, dim=-1, keepdim=True)
-    age_fraction = torch.where(total > 0, N / total, torch.zeros_like(N))
-    E0 = _col(params.seed_exposed) * age_fraction
+    E0 = _col(params.seed_exposed) * age_fraction(N)
     y = torch.zeros(E0.shape[:-1] + (C.NUM_COMPARTMENTS, N.shape[-1]),
                     dtype=N.dtype, device=N.device)
     y[..., C.E, :] = E0

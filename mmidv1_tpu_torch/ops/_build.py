@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>_<hash>.so`` inside the package
-(a directory ``.gitignore`` lists). One header is generated rather than
-written: ``build/gen/sepaihrd_tableaus.cuh`` (:func:`tableau_header`), the
-zero pattern of every tableau of :data:`KERNEL_TABLEAUS`, read from
-``ode/tableaus.py`` at each build, so the kernels hold no second copy of the
-tables. The hash covers the source, every header of ``csrc/`` (``*.cuh``,
-which the sources include), the generated header and the flags, so an
-edited source, header or tableau is rebuilt at its next use and an
-unchanged one is not.
+(a directory ``.gitignore`` lists). Two headers are generated rather than
+written, into ``build/gen/``: ``sepaihrd_tableaus.cuh``
+(:func:`tableau_header`), the zero pattern of every tableau of
+:data:`KERNEL_TABLEAUS`, read from ``ode/tableaus.py`` at each build, so the
+kernels hold no second copy of the tables; and ``sepaihrd_prep_layout.cuh``
+(:func:`prep_layout_header`), the prep kernel's view of the gather table
+whose format ``ops/sepaihrd_fused.py`` defines. The hash covers the source,
+every header of ``csrc/`` (``*.cuh``, which the sources include), the
+generated headers and the flags, so an edited source, header, tableau or
+table format is rebuilt at its next use and an unchanged one is not.
 Sources are compiled in parallel, one ``nvcc`` process each. Nothing is
 built when this module is imported: the first kernel launch builds.
 """
@@ -39,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernels' C interface is its index here.
 KERNEL_TABLEAUS = ("rk4", "cash_karp", "rkf45", "dopri5", "fehlberg78")
 TABLEAU_HEADER = "sepaihrd_tableaus.cuh"
+PREP_LAYOUT_HEADER = "sepaihrd_prep_layout.cuh"
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -97,23 +100,45 @@ def tableau_header() -> str:
     return "\n".join(lines)
 
 
+def prep_layout_header() -> str:
+    """The text of ``sepaihrd_prep_layout.cuh``: one ``constexpr int`` for
+    each of :func:`.sepaihrd_fused.prep_layout_constants` (the index of each
+    table section in the prep kernel's ``head``, the slots it reads by
+    position, K1's input shape)."""
+    from .sepaihrd_fused import prep_layout_constants
+    lines = ["// Generated by mmidv1_tpu_torch/ops/_build.py from",
+             "// mmidv1_tpu_torch/ops/sepaihrd_fused.py at build time; not edited by hand.",
+             "#pragma once", "", "namespace sepaihrd_prep {", ""]
+    lines += [f"constexpr int {k} = {v};"
+              for k, v in prep_layout_constants().items()]
+    lines += ["", "}  // namespace sepaihrd_prep", ""]
+    return "\n".join(lines)
+
+
+def _generated():
+    return {TABLEAU_HEADER: tableau_header(),
+            PREP_LAYOUT_HEADER: prep_layout_header()}
+
+
 def library_path(name: str) -> str:
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for fname in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(fname.encode() + b"\0" + f.read())
-    digest.update(TABLEAU_HEADER.encode() + b"\0" + tableau_header().encode())
+    for fname, text in _generated().items():
+        digest.update(fname.encode() + b"\0" + text.encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
-def _write_tableau_header():
+def _write_headers():
     os.makedirs(GEN_DIR, exist_ok=True)
-    path = os.path.join(GEN_DIR, TABLEAU_HEADER)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        f.write(tableau_header())
-    os.replace(tmp, path)
+    for fname, text in _generated().items():
+        path = os.path.join(GEN_DIR, fname)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
 
 
 def build(names: Sequence[str]) -> Dict[str, float]:
@@ -121,7 +146,7 @@ def build(names: Sequence[str]) -> Dict[str, float]:
     once; returns ``{name: seconds}`` (0.0 for an up-to-date library). The
     compiler's register and spill report goes to ``build/<name>.ptxas.txt``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    _write_tableau_header()
+    _write_headers()
     started = {}
     for name in names:
         so = library_path(name)

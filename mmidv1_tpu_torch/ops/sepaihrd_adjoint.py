@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..calibration.objective import lowest
 from ..calibration.param_space import REFLECT, ParameterSpace
 from ..data.calibration_data import CalibrationData
 from ..ode.tableaus import get_tableau
@@ -49,9 +48,9 @@ from ..utils import trace
 from .sepaihrd_fused import (N_AGES, _check_inputs,
                              _launch_forward, build_objective_fused,
                              check_regime, check_schedule, check_tensors,
-                             dependent_stages, host_consts, op_count,
-                             plain_days, plain_forward, plain_forward_split,
-                             stage_use)
+                             dependent_stages, host_consts, mask_values,
+                             op_count, plain_days, plain_forward,
+                             plain_forward_split, stage_use)
 
 L_CHUNK = 24        # days per checkpoint (csrc/sepaihrd_adjoint.cu kChunk)
 MAX_SUBSTEPS = 16   # K3's scratch holds the state after every substep
@@ -475,8 +474,7 @@ def build_objective_fused_grad(space: ParameterSpace,
                 prep.kernel_args(th)
             ll = FusedObjectiveFn.apply(y0, agevec, scal, beff, obs, valid, M,
                                         spec)
-            bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
-            ll = torch.where(bad, torch.full_like(ll, lowest(prep.dtype)), ll)
+            ll = mask_values(ll, infeasible)
             (grad,) = torch.autograd.grad(ll.sum(), th)
         value_and_grad_batch.calls += 1
         return ll.detach(), grad

@@ -36,7 +36,7 @@ import torch
 
 from .. import constants as C
 from ..calibration.objective import base_state, check_grid, lowest
-from ..calibration.param_space import REFLECT, ParameterSpace
+from ..calibration.param_space import CLAMP, REFLECT, ParameterSpace
 from ..data.calibration_data import CalibrationData
 from ..models import sepaihrd
 from ..ode.integrate import _advance_interval_fixed
@@ -574,9 +574,176 @@ def op_count(tableau: str, substeps: int, n_intervals: int, n_obs_days: int) -> 
     return N_AGES * per_lane
 
 
+# The gather table's format, here alone: ops/_build.py writes what the prep
+# kernel needs of it into the generated header sepaihrd_prep_layout.cuh.
+# The slots: agevec's fields by age, scal's, the contact scaling, the
+# multipliers and run-up; then the schedule's beta and kappa sources.
+AGE_FIELDS = ("a", "h_infec", "p", "h", "icu", "d_H", "d_ICU", "d_community")
+SCAL_FIELDS = ("theta", "sigma", "gamma_p", "gamma_A", "gamma_I", "gamma_H",
+               "gamma_ICU")
+INIT_FIELDS = ("E0_multiplier", "P0_multiplier", "A0_multiplier",
+               "I0_multiplier", "H0_multiplier", "ICU0_multiplier",
+               "R0_multiplier", "D0_multiplier", "runup_days", "seed_exposed")
+_SCAL0 = N_AGES * len(AGE_FIELDS)
+_SCALING = _SCAL0 + len(SCAL_FIELDS)
+_INIT0 = _SCALING + 1
+_FIXED_SLOTS = _INIT0 + len(INIT_FIELDS)
+# The table's sections, in order; their offsets are the kernel's ``head``
+# argument: src (each slot's theta column, or -1 for its base value), base
+# (each slot's base value), run_beta / run_kappa (each schedule run's beta
+# and kappa slots), invN / N / frac (1/N, 0 below the floor; N; N / sum N),
+# y0 (the multiplier branch's data-inferred state), lo / hi / w / w2 / deg
+# (the constraint's per-column bounds, width (1 where degenerate), twice
+# it, and 1 where degenerate)
+PREP_SECTIONS = ("src", "base", "run_beta", "run_kappa", "invN", "N", "frac",
+                 "y0", "lo", "hi", "w", "w2", "deg")
+PREP_MODES = {CLAMP: 0, REFLECT: 1}       # the prep kernel's mode argument
+
+
+def prep_layout_constants():
+    """``{name: value}`` of the generated header ``sepaihrd_prep_layout.cuh``:
+    the index of each section in the kernel's ``head``, the slots it reads
+    by position, and K1's input shape."""
+    camel = lambda s: "k" + "".join(w[:1].upper() + w[1:] for w in s.split("_"))
+    return dict(
+        {camel(s): i for i, s in enumerate(PREP_SECTIONS)},
+        kSections=len(PREP_SECTIONS), kAges=N_AGES,
+        kRows=C.NUM_COMPARTMENTS, kAgeFields=len(AGE_FIELDS),
+        kHInfec=AGE_FIELDS.index("h_infec"), kScal0=_SCAL0,
+        kScalSlots=len(SCAL_FIELDS), kScaling=_SCALING, kMult=_INIT0,
+        kMults=INIT_FIELDS.index("runup_days"),
+        kRunup=_INIT0 + INIT_FIELDS.index("runup_days"),
+        kSeed=_INIT0 + INIT_FIELDS.index("seed_exposed"),
+        kFixedSlots=_FIXED_SLOTS)
+
+
+@functools.lru_cache(maxsize=None)
+def _prep_fns():
+    """The prep and mask kernels' C entry points: the prep's by (dtype,
+    the constraint's dtype), the mask's by value size."""
+    from . import _build
+
+    lib = _build.load("sepaihrd_prep")
+    err = lib.sepaihrd_prep_error_string
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    prep, mask = {}, {}
+    f32, f64 = torch.float32, torch.float64
+    for key, suffix in (((f32, f32), "f32"), ((f64, f64), "f64")):
+        fn = prep[key] = getattr(lib, f"sepaihrd_prep_{suffix}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+    for elem, suffix in ((4, "f32"), (8, "f64")):
+        fn = mask[elem] = getattr(lib, f"sepaihrd_mask_{suffix}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    return prep, mask, err
+
+
+def _raise_on(err: int, what: str, error_string):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+
+
+def _mask_where(ll: torch.Tensor, infeasible: torch.Tensor) -> torch.Tensor:
+    bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
+    return torch.where(bad, torch.full_like(ll, lowest(ll.dtype)), ll)
+
+
+def _mask_kernel(ll: torch.Tensor, infeasible: torch.Tensor) -> torch.Tensor:
+    check_tensors(dict(ll=ll), "mask_values")
+    if infeasible.shape != ll.shape or infeasible.dtype != torch.bool \
+            or infeasible.device != ll.device:
+        raise ValueError("infeasible must be a bool tensor shaped and placed "
+                         "as ll")
+    infeasible = infeasible.contiguous()
+    _prep, mask, error_string = _prep_fns()
+    B = ll.shape[0]
+    out = torch.empty_like(ll)
+    with torch.cuda.device(ll.device):
+        stream = torch.cuda.current_stream(ll.device).cuda_stream
+        err = mask[ll.element_size()](ll.data_ptr(), infeasible.data_ptr(),
+                                      out.data_ptr(), B, stream)
+    _raise_on(err, "mask_values", error_string)
+    trace.count("launches", ("mask", B))
+    return out
+
+
+class _MaskFn(torch.autograd.Function):
+    """The mask kernel under autograd: the gradient of ``torch.where``'s
+    kept rows, zero on the masked ones."""
+
+    @staticmethod
+    def forward(ctx, ll, infeasible):
+        ctx.save_for_backward(ll, infeasible)
+        return _mask_kernel(ll, infeasible)
+
+    @staticmethod
+    def backward(ctx, g):
+        ll, infeasible = ctx.saved_tensors
+        bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
+        return torch.where(bad, torch.zeros_like(g), g), None
+
+
+def mask_values(ll: torch.Tensor, infeasible: torch.Tensor) -> torch.Tensor:
+    """The objective's values from K1's log-likelihoods ``ll (B,)``: a row
+    that is infeasible, NaN or Inf becomes ``finfo(dtype).min``. CUDA
+    tensors take the mask kernel (counted in the tracer's ``launches``
+    under ``("mask", B)``; under autograd its gradient is ``torch.where``'s),
+    host tensors the same ``torch.where``."""
+    if not ll.is_cuda:
+        return _mask_where(ll, infeasible)
+    return _MaskFn.apply(ll, infeasible)
+
+
+class _PrepFn(torch.autograd.Function):
+    """The prep kernel under autograd: the forward is the kernel; the
+    backward recomputes the plain version from the saved thetas and
+    backpropagates through it, so the gradient is the plain version's."""
+
+    @staticmethod
+    def forward(ctx, thetas, prep):
+        ctx.set_materialize_grads(False)
+        ctx.prep = prep
+        ctx.save_for_backward(thetas)
+        args, infeasible = prep._prep_kernel(thetas)
+        ctx.mark_non_differentiable(infeasible)
+        return (*args, infeasible)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (thetas,) = ctx.saved_tensors
+        with torch.enable_grad():
+            th = thetas.detach().requires_grad_(True)
+            args, _infeasible = ctx.prep._prep_plain(th)
+            used = [(a, g) for a, g in zip(args, grads) if g is not None]
+            if not used:
+                return None, None
+            (grad,) = torch.autograd.grad([a for a, _g in used], th,
+                                          [g for _a, g in used],
+                                          allow_unused=True)
+        return grad, None
+
+
 class FusedPrep:
     """The host constants and the theta -> kernel-input prep shared by the
-    fused objective (port of ``shared_prep``)."""
+    fused objective (port of ``shared_prep``).
+
+    The prep reads one gather table, built here once and held on the
+    device (``table``, float64, the sections of :data:`PREP_SECTIONS`, whose
+    offsets are ``offsets``): for each slot (a field element of the
+    parameters that feeds K1's inputs) the theta column it takes, after the
+    constraint, or its base value; each schedule run's beta and kappa
+    slots; and the constants of the derived inputs (1/N, N, the run-up's
+    age shares, the multiplier branch's state, the constraint's per-column
+    bounds and widths). On the card the prep kernel computes all of K1's
+    inputs from it in one launch; under autograd its gradient is the plain
+    version's (:class:`_PrepFn`). Host tensors take the plain version,
+    PyTorch over the same slots, whose gradients flow through its
+    gathers."""
 
     def __init__(self, space: ParameterSpace, base_params: SEPAIHRDParams,
                  data: CalibrationData, ts, *, base_initial_state=None,
@@ -586,9 +753,10 @@ class FusedPrep:
         if not np.all(np.diff(ts) == 1.0):
             raise ValueError("the fused objective integrates daily intervals: "
                              "ts must be unit-spaced")
+        if constraint_mode not in PREP_MODES:
+            raise ValueError(f"unknown constraint mode {constraint_mode!r}")
         self.space, self.mode, self.dtype, self.device = (space, constraint_mode,
                                                           dtype, device)
-        self.scatter = space.scatter_table(device)
         self.base = base_params.to(device, dtype)
         self.base_y0 = torch.as_tensor(
             base_state(base_params, data, base_initial_state),
@@ -612,51 +780,135 @@ class FusedPrep:
         self.invN = torch.as_tensor(
             np.where(N > C.MIN_POPULATION_FOR_DIVISION, 1.0 / N, 0.0),
             dtype=dtype, device=device)
+        self._build_table()
+
+    def _build_table(self):
+        """The slots (their fields, the theta column or -1 of each, their
+        base values), each run's beta and kappa slots, ``table``, its
+        sections' ``offsets`` and the kernel's ``head`` (the same offsets)."""
+        base, space = self.base, self.space
+        nb, nk = (int(base.beta_values.shape[-1]),
+                  int(base.kappa_values.shape[-1]))
+        beta = [("beta_values", i) for i in range(nb)] or [("beta", None)]
+        kappa = [("kappa_values", k) for k in range(nk)] or [(None, None)]
+        slots = ([(f, j) for f in AGE_FIELDS for j in range(N_AGES)]
+                 + [(f, None) for f in SCAL_FIELDS + (
+                     "contact_matrix_scaling_factor",) + INIT_FIELDS]
+                 + beta + kappa)
+        column = {}
+        for field, fidx, tidx in space.scatter_table():
+            for fi, ti in (((None, tidx),) if fidx is None else zip(fidx, tidx)):
+                column[(field, fi)] = ti
+        self.src = [column.get(s, -1) for s in slots]
+        one = torch.ones((), dtype=self.dtype, device=self.device)
+        self.base_row = torch.stack([
+            one if f is None else getattr(base, f) if j is None
+            else getattr(base, f)[j] for f, j in slots])
+        self.beta_slots = range(_FIXED_SLOTS, _FIXED_SLOTS + len(beta))
+        self.kappa_slots = range(self.beta_slots.stop,
+                                 self.beta_slots.stop + len(kappa))
+        self.run_beta = [self.beta_slots[i] for i in self.pb]
+        self.run_kappa = [self.kappa_slots[k] for k in self.pk]
+        d = space.dim
+        self.gather = torch.tensor([c if c >= 0 else d + s
+                                    for s, c in enumerate(self.src)],
+                                   dtype=torch.int64, device=self.device)
+        w, degenerate = space.reflect_widths()
+        sections = dict(
+            src=self.src, base=self.base_row, run_beta=self.run_beta,
+            run_kappa=self.run_kappa, invN=self.invN, N=base.N,
+            frac=sepaihrd.age_fraction(base.N), y0=self.base_y0,
+            lo=space.lower, hi=space.upper, w=w, w2=2.0 * w, deg=degenerate)
+        parts = [torch.as_tensor(sections[s]).reshape(-1).to(
+            device=self.device, dtype=torch.float64) for s in PREP_SECTIONS]
+        sizes = [p.numel() for p in parts]
+        self.offsets = dict(zip(PREP_SECTIONS,
+                                np.cumsum([0] + sizes[:-1]).tolist()))
+        self.head = (ctypes.c_int * len(PREP_SECTIONS))(
+            *(self.offsets[s] for s in PREP_SECTIONS))
+        self.table = torch.cat(parts)
 
     def kernel_args(self, thetas: torch.Tensor):
         """``(args, kwargs, infeasible)`` of :func:`fused_objective` for a
-        ``(B, d)`` theta batch: the tracer's span ``objective.prep``, with
-        ``prep.constrain``, ``prep.apply``, ``prep.initial_state`` and
-        ``prep.pack`` (y0, agevec, scal, beff) inside. On the card it
-        enqueues no host-to-device copy and reads nothing back, so a CUDA
-        graph can capture it."""
+        ``(B, d)`` theta batch: the tracer's span ``objective.prep``. CUDA
+        thetas take the prep kernel (one launch, counted in ``launches``
+        under ``("prep", mode, B)``; under autograd through :class:`_PrepFn`);
+        host thetas the plain version, with ``prep.constrain``,
+        ``prep.apply``, ``prep.initial_state`` and ``prep.pack`` inside. On
+        the card it enqueues no host-to-device copy and reads nothing back,
+        so a CUDA graph can capture it."""
         with trace.span("objective.prep"):
-            with trace.span("prep.constrain"):
-                theta = self.space.constrain(thetas.to(self.dtype), self.mode)
-            B = theta.shape[0]
-            with trace.span("prep.apply"):
-                prm = self.space.apply(self.base, theta, self.scatter)
-            with trace.span("prep.initial_state"):
-                y0, infeasible = sepaihrd.initial_state_for_params(
-                    prm, self.base_y0)
-            with trace.span("prep.pack"):
-                args = self._pack(prm, y0, B)
+            if thetas.is_cuda:
+                *args, infeasible = _PrepFn.apply(thetas, self)
+                args = tuple(args)
+            else:
+                args, infeasible = self._prep_plain(thetas)
             return (args + (self.obs, self.valid, self.M),
                     dict(run_start=self.run_start, run_count=self.run_count,
-                         runup_offset=self.runup_offset), infeasible.expand(B))
+                         runup_offset=self.runup_offset), infeasible)
 
-    def _pack(self, prm, y0, B):
-        """The kernel's per-chain inputs ``(y0, agevec, scal, beff)``."""
-        y0 = y0.expand(B, C.NUM_COMPARTMENTS, N_AGES).permute(1, 2, 0).contiguous()
-        vecs = [prm.a, prm.h_infec * self.invN, prm.p, prm.h, prm.icu, prm.d_H,
-                prm.d_ICU, prm.d_community]
-        agevec = torch.stack([v.expand(B, N_AGES) for v in vecs]) \
-            .permute(0, 2, 1).contiguous()
-        scal = torch.stack([s.expand(B) for s in (
-            prm.theta, prm.sigma, prm.gamma_p, prm.gamma_A, prm.gamma_I,
-            prm.gamma_H, prm.gamma_ICU)]).contiguous()
-        if prm.beta_values.shape[-1]:
-            bsrc = prm.beta_values
-        else:
-            bsrc = prm.beta.unsqueeze(-1)
-        bsrc = bsrc * prm.contact_matrix_scaling_factor.unsqueeze(-1)
-        if prm.kappa_values.shape[-1]:
-            ksrc = prm.kappa_values
-        else:
-            ksrc = torch.ones(1, dtype=self.dtype, device=self.device)
-        beff = torch.stack([(bsrc[..., i] * ksrc[..., k]).expand(B)
-                            for i, k in zip(self.pb, self.pk)]).contiguous()
-        return y0, agevec, scal, beff
+    def _prep_kernel(self, thetas):
+        """The prep kernel's ``((y0, agevec, scal, beff), infeasible)``."""
+        thetas = thetas.detach().to(self.dtype).contiguous()
+        B, d = thetas.shape if thetas.dim() == 2 else (0, 0)
+        dev = self.table.device
+        if d != self.space.dim or B < 1 or thetas.device != dev:
+            raise ValueError(f"thetas must be (B, {self.space.dim}) on {dev}, "
+                             f"got {tuple(thetas.shape)} on {thetas.device}")
+        prep, _mask, error_string = _prep_fns()
+        key = (self.dtype, torch.promote_types(self.dtype, self.space.dtype))
+        if key not in prep:
+            raise ValueError(
+                f"the prep kernel takes a float32 or float64 objective over a "
+                f"space of its dtype, or a float64 objective over a float32 "
+                f"space: not a {self.dtype} objective over a "
+                f"{self.space.dtype} space")
+        R = len(self.run_beta)
+        new = lambda *shape: torch.empty(shape, dtype=self.dtype, device=dev)
+        args = (new(C.NUM_COMPARTMENTS, N_AGES, B),
+                new(len(AGE_FIELDS), N_AGES, B), new(len(SCAL_FIELDS), B),
+                new(R, B))
+        infeasible = torch.empty(B, dtype=torch.bool, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = prep[key](thetas.data_ptr(), self.table.data_ptr(), self.head,
+                            *(a.data_ptr() for a in args),
+                            infeasible.data_ptr(), B, d, R,
+                            PREP_MODES[self.mode], stream)
+        _raise_on(err, "FusedPrep.kernel_args", error_string)
+        trace.count("launches", ("prep", self.mode, B))
+        return args, infeasible
+
+    def _prep_plain(self, thetas):
+        """The plain version: every slot gathered from the constrained
+        thetas and the base values at once, then K1's inputs in PyTorch."""
+        B = thetas.shape[0]
+        with trace.span("prep.constrain"):
+            theta = self.space.constrain(thetas.to(self.dtype), self.mode)
+        with trace.span("prep.apply"):
+            slots = torch.cat([theta.to(self.dtype),
+                               self.base_row.expand(B, -1)], dim=1)[:, self.gather]
+        with trace.span("prep.initial_state"):
+            # a field no theta feeds keeps its base shape, as apply leaves it
+            prm = self.base.replace(**{
+                f: slots[:, s] if self.src[s] >= 0 else getattr(self.base, f)
+                for s, f in enumerate(INIT_FIELDS, _INIT0)})
+            y0, infeasible = sepaihrd.initial_state_for_params(prm,
+                                                               self.base_y0)
+        with trace.span("prep.pack"):
+            y0 = y0.expand(B, C.NUM_COMPARTMENTS, N_AGES).permute(1, 2, 0)
+            age = slots[:, :_SCAL0].reshape(B, len(AGE_FIELDS), N_AGES)
+            agevec = torch.cat([age[:, :1], age[:, 1:2] * self.invN, age[:, 2:]],
+                               dim=1).permute(1, 2, 0)
+            scal = slots[:, _SCAL0:_SCALING].T
+            bs = slots[:, self.beta_slots.start:self.beta_slots.stop] \
+                * slots[:, _SCALING:_SCALING + 1]
+            ks = slots[:, self.kappa_slots.start:self.kappa_slots.stop]
+            # one product a run, as the runs share their beta and kappa
+            beff = torch.stack([bs[:, i] * ks[:, k]
+                                for i, k in zip(self.pb, self.pk)])
+            args = tuple(a.contiguous() for a in (y0, agevec, scal, beff))
+        return args, infeasible.expand(B)
 
 
 # K1 value graphs an objective keeps, the least recently used dropped first
@@ -744,10 +996,11 @@ def build_objective_fused(space: ParameterSpace, base_params: SEPAIHRDParams,
                           dtype: Optional[torch.dtype] = None,
                           device=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """Batched objective ``loglik_batch(thetas (B, d)) -> (B,)`` backed by the
-    fused kernel (counterpart of ``build_objective_pallas``). Constrain,
-    apply, initial state and the per-run beta stay in PyTorch; the solve and
-    fold run in one launch. Infeasible, NaN or Inf results become
-    ``finfo(dtype).min``. ``dtype``/``device`` default to the base
+    fused kernel (counterpart of ``build_objective_pallas``). On the card a
+    call is three launches: the prep (constrain, apply, initial state and
+    the per-run beta, :meth:`FusedPrep.kernel_args`), K1 (the solve and
+    fold) and the mask (:func:`mask_values`): infeasible, NaN or Inf results
+    become ``finfo(dtype).min``. ``dtype``/``device`` default to the base
     parameters'. On the card, outside autograd, the whole call is replayed
     as a CUDA graph from its third call at a shape on (:class:`_ValueGraphs`).
     A call is the tracer's span ``objective``; on an eager or capturing call
@@ -762,8 +1015,7 @@ def build_objective_fused(space: ParameterSpace, base_params: SEPAIHRDParams,
         args, kw, infeasible = prep.kernel_args(thetas)
         ll = fused_objective(*args, **kw, substeps=substeps, tableau=tableau)
         with trace.span("objective.mask"):
-            bad = infeasible | torch.isnan(ll) | torch.isinf(ll)
-            return torch.where(bad, torch.full_like(ll, lowest(dtype)), ll)
+            return mask_values(ll, infeasible)
 
     graphs = _ValueGraphs(value, dtype)
 

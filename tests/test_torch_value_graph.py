@@ -5,10 +5,10 @@ This file imports nothing of JAX, so the card (which has no JAX) can run it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_value_graph.py
 
-Host tests: ``FusedPrep``'s scatter with positions held on the device gives
-the kernel inputs, and the gradient through them, bit for bit as
-``ParameterSpace.apply``'s list positions do; host calls stay eager and keep
-every prep span. Card tests (marked ``cuda``): at the samplers' chain counts
+Host tests: ``FusedPrep``'s prep (its plain version on the host) gives the
+kernel inputs, and the gradient through them, bit for bit as
+``ParameterSpace.apply``'s scatter did; host calls stay eager and keep every
+prep span. Card tests (marked ``cuda``): at the samplers' chain counts
 and the benchmark's two solvers, a replayed call equals the eager call on
 the same thetas bit for bit, with rows reflected into the bounds, floored
 (an initial state past N) and NaN; a kept result is never overwritten by a
@@ -109,14 +109,41 @@ def assert_bit_equal(a, b):
     assert torch.equal(bits(a), bits(b))
 
 
+def legacy_pack(prep, prm, y0, B):
+    """K1's per-chain inputs ``(y0, agevec, scal, beff)`` from applied
+    parameters, as ``FusedPrep._pack`` stacked them before the gather
+    table."""
+    y0 = y0.expand(B, 11, 4).permute(1, 2, 0).contiguous()
+    vecs = [prm.a, prm.h_infec * prep.invN, prm.p, prm.h, prm.icu, prm.d_H,
+            prm.d_ICU, prm.d_community]
+    agevec = torch.stack([v.expand(B, 4) for v in vecs]) \
+        .permute(0, 2, 1).contiguous()
+    scal = torch.stack([s.expand(B) for s in (
+        prm.theta, prm.sigma, prm.gamma_p, prm.gamma_A, prm.gamma_I,
+        prm.gamma_H, prm.gamma_ICU)]).contiguous()
+    if prm.beta_values.shape[-1]:
+        bsrc = prm.beta_values
+    else:
+        bsrc = prm.beta.unsqueeze(-1)
+    bsrc = bsrc * prm.contact_matrix_scaling_factor.unsqueeze(-1)
+    if prm.kappa_values.shape[-1]:
+        ksrc = prm.kappa_values
+    else:
+        ksrc = torch.ones(1, dtype=prep.dtype, device=prep.device)
+    beff = torch.stack([(bsrc[..., i] * ksrc[..., k]).expand(B)
+                        for i, k in zip(prep.pb, prep.pk)]).contiguous()
+    return y0, agevec, scal, beff
+
+
 def legacy_kernel_args(prep, thetas):
     """``FusedPrep.kernel_args`` as it was with ``ParameterSpace.apply``'s
-    list positions: constrain, apply, the initial state, ``_pack``."""
+    list positions: constrain, apply, the initial state, the stacks of
+    :func:`legacy_pack`."""
     theta = prep.space.constrain(thetas.to(prep.dtype), prep.mode)
     B = theta.shape[0]
     prm = prep.space.apply(prep.base, theta)
     y0, infeasible = sepaihrd.initial_state_for_params(prm, prep.base_y0)
-    return (prep._pack(prm, y0, B) + (prep.obs, prep.valid, prep.M),
+    return (legacy_pack(prep, prm, y0, B) + (prep.obs, prep.valid, prep.M),
             dict(run_start=prep.run_start, run_count=prep.run_count,
                  runup_offset=prep.runup_offset), infeasible.expand(B))
 
@@ -128,37 +155,14 @@ def fused_prep(space, params, data, ts):
 
 # --- host (tier-1) ----------------------------------------------------------
 
-@pytest.mark.parametrize("device", [None, "cpu"])
-def test_apply_with_a_table_equals_apply(device):
-    """``apply`` with ``scatter_table(device)`` equals ``apply`` with the
-    list positions bit for bit on a ``(2, 3, d)`` batch, and the table
-    mirrors the space's positions."""
-    space, params, _data, _ts = spain(True, torch.float64, "cpu", num_days=20)
-    table = space.scatter_table(device)
-    assert [f for f, _fi, _ti in table] == list(space._scatter)
-    for field, fidx, tidx in table:
-        want = space._scatter[field]
-        if fidx is None:
-            assert want == ([-1], [tidx])
-        else:
-            assert [list(map(int, fidx)), list(map(int, tidx))] == list(want)
-            assert isinstance(fidx, list) == (device is None)
-    x = torch.stack(batches(space, params, 3, kinds=2))
-    a, b = space.apply(params, x), space.apply(params, x, table)
-    for field in space._scatter:
-        assert getattr(a, field).shape[:2] == (2, 3)
-        assert_bit_equal(getattr(a, field), getattr(b, field))
-
-
 @pytest.mark.parametrize("runup", [True, False])
 def test_prep_positions_on_the_device_equal_the_list_scatter(runup):
-    """``FusedPrep.kernel_args`` (positions held as tensors on the device)
+    """``FusedPrep.kernel_args`` (its gather table held on the device)
     gives every kernel input and the infeasible mask bit for bit as the list
     scatter; the rows past N are infeasible and no other."""
     space, params, data, ts = spain(runup, torch.float64, "cpu")
     prep = fused_prep(space, params, data, ts)
-    assert all(fidx is None or isinstance(fidx, torch.Tensor)
-               for _f, fidx, _t in prep.scatter)
+    assert prep.table.device == prep.gather.device == space.device
     for B in (1, 9):
         for x in batches(space, params, B):
             args, kw, inf = prep.kernel_args(x)
