@@ -51,8 +51,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..parallel.mesh import LOCAL
+from ..utils.graphs import GraphCache
 from ..utils.logging import get_logger
-from ..utils.trace import count, span
+from ..utils.trace import span
 from .draws import GeneratorDraws, SeededRunDraws, shard_draws
 from .param_space import ParameterSpace
 
@@ -357,65 +358,45 @@ class _StepBuffers:
 
 class _StepGraphs:
     """The single-rank AM step (:func:`mh_step`) replayed as two CUDA graphs
-    a device, dtype and chain count, around the objective call, which stays
-    a Python call: ``before`` (:func:`mh_propose`) writes the proposals,
-    ``after`` (:func:`mh_accept`) the new state, into fixed buffers
-    (:class:`_StepBuffers`).
-
-    The first :data:`EAGER_STEPS` steps at a key run :func:`mh_step`; the
-    next captures both parts on the key's buffers; every step from then on
-    copies in what the state holds outside the buffers, its draws and its
-    gain, replays ``before``, calls ``loglik_batch`` once on the proposals
-    (through whatever wraps it), copies the values in and replays
-    ``after``. The state returned holds the buffers, which the next step
-    overwrites: a caller copies what it keeps (:meth:`release`). Host
-    tensors run eagerly. The tracer's counter ``mh.graph`` counts the steps
-    by ``("eager" | "capture" | "replay", B)``, spans on or off; a graphed
-    step is the span ``mh.replay``."""
+    a device, dtype and chain count around the objective call, which stays
+    a Python call (:class:`..utils.graphs.GraphCache`: :data:`EAGER_STEPS`
+    eager steps first, counter ``mh.graph``): ``before`` (:func:`mh_propose`)
+    writes the proposals, ``after`` (:func:`mh_accept`) the new state, into
+    fixed buffers (:class:`_StepBuffers`). A replayed step, the span
+    ``mh.replay``, copies in what the state holds outside the buffers, its
+    draws and its gain, replays ``before``, calls ``loglik_batch`` once on
+    the proposals (through whatever wraps it), copies the values in and
+    replays ``after``. The state returned holds the buffers, which the next
+    step overwrites: a caller copies what it keeps (:meth:`release`)."""
 
     def __init__(self, space: ParameterSpace, cfg: MHConfig):
         self.space, self.cfg = space, cfg
-        self.eager = {}     # key -> eager steps so far
-        self.graphs = {}    # key -> (buffers, before, proposals, after)
+        self.cache = GraphCache("mh.graph", EAGER_STEPS)
 
     def __call__(self, state: MHState, z: torch.Tensor, u: torch.Tensor,
                  loglik_batch: Callable) -> MHState:
         x = state.x
         B = int(x.shape[0])
-        key = (x.device, x.dtype, B)
-        entry = self.graphs.get(key) if x.is_cuda else None
-        if entry is not None:
-            count("mh.graph", ("replay", B))
-        elif x.is_cuda and self.eager.get(key, 0) >= EAGER_STEPS:
-            entry = self.graphs[key] = self._capture(state)
-            count("mh.graph", ("capture", B))
-        else:
-            if x.is_cuda:
-                self.eager[key] = self.eager.get(key, 0) + 1
-            count("mh.graph", ("eager", B))
+        graphs = self.cache.get((x.device, x.dtype, B) if x.is_cuda else None,
+                                x.device, B, lambda: self._build(state))
+        if graphs is None:
             return mh_step(state, z, u, self.space, loglik_batch, self.cfg)
-        bufs, before, proposal, after = entry
+        bufs, proposal = graphs.held, graphs.outputs[0]
         with span("mh.replay"):
             bufs.load(state, z, u)
-            before.replay()
+            graphs.replay(0)
             bufs.lp.copy_(loglik_batch(proposal))
-            after.replay()
+            graphs.replay(1)
         return bufs.result(state)
 
-    def _capture(self, state: MHState):
+    def _build(self, state: MHState):
         bufs = _StepBuffers(state, self.space, self.cfg)
-        before, after = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        with torch.cuda.device(state.x.device):
-            with torch.cuda.graph(before):
-                proposal = bufs.propose()
-            with torch.cuda.graph(after):
-                bufs.accept(proposal)
-        return bufs, before, proposal, after
+        return bufs, (bufs.propose, bufs.accept)
 
     def release(self, state: MHState) -> MHState:
         """``state`` with copies of the buffers it holds."""
-        held = {id(getattr(e[0].state, f)) for e in self.graphs.values()
-                for f in _BUFFERED}
+        held = {id(getattr(g.held.state, f))
+                for g in self.cache.entries.values() for f in _BUFFERED}
         return state._replace(**{f: getattr(state, f).clone()
                                  for f in _BUFFERED
                                  if id(getattr(state, f)) in held})

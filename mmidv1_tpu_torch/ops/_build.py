@@ -14,11 +14,17 @@ generated headers and the flags, so an edited source, header, tableau or
 table format is rebuilt at its next use and an unchanged one is not.
 Sources are compiled in parallel, one ``nvcc`` process each. Nothing is
 built when this module is imported: the first kernel launch builds.
+
+Every kernel is called through this module: :func:`bind` sets a C entry
+point's types once, and :func:`launch` calls one on the current stream of
+its device and raises with the library's ``<name>_error_string`` on a
+non-zero code.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +32,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Sequence
+
+import torch
 
 from ..ode.tableaus import get_tableau
 
@@ -40,6 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # The tableaus the SEPAIHRD kernels are built for; a tableau's id in the
 # kernels' C interface is its index here.
 KERNEL_TABLEAUS = ("rk4", "cash_karp", "rkf45", "dopri5", "fehlberg78")
+# the suffix of a kernel's C entry point by the size of its values
+SUFFIX = {4: "f32", 8: "f64"}
 TABLEAU_HEADER = "sepaihrd_tableaus.cuh"
 PREP_LAYOUT_HEADER = "sepaihrd_prep_layout.cuh"
 
@@ -184,3 +194,27 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(library_path(name))
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
+    """The C function ``symbol`` of library ``name`` (loaded, built first
+    if needed), its argument and result types set; once for each set."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes, fn.restype = list(argtypes), restype
+    return fn
+
+
+def launch(what: str, device: torch.device, name: str, symbol: str,
+           argtypes: tuple, *args) -> None:
+    """Call the kernel entry ``symbol`` of library ``name`` on ``device``:
+    ``args`` (of ``argtypes``) and the device's current stream, appended,
+    under its device guard. A non-zero code raises ``RuntimeError``
+    naming ``what`` and the library's message for the code."""
+    fn = bind(name, symbol, argtypes + (ctypes.c_void_p,))
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = bind(name, f"{name}_error_string", (ctypes.c_int,),
+                   ctypes.c_char_p)(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")

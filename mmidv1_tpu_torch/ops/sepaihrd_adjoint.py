@@ -33,7 +33,6 @@ XLA objective would pass half at ``cv == 0``; the force of infection's
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import numpy as np
@@ -45,10 +44,11 @@ from ..data.calibration_data import CalibrationData
 from ..ode.tableaus import get_tableau
 from ..params import SEPAIHRDParams
 from ..utils import trace
-from .sepaihrd_fused import (N_AGES, _check_inputs,
-                             _launch_forward, build_objective_fused,
-                             check_regime, check_schedule, check_tensors,
-                             dependent_stages, host_consts, mask_values,
+from ._build import SUFFIX, bind, launch, tableau_id
+from .sepaihrd_fused import (N_AGES, build_objective_fused,
+                             check_forward_inputs, check_regime,
+                             check_schedule, check_tensors, dependent_stages,
+                             host_consts, launch_forward, mask_values,
                              op_count, plain_days, plain_forward,
                              plain_forward_split, stage_use)
 
@@ -66,33 +66,11 @@ def num_chunks(n_intervals: int) -> int:
     return -(-n_intervals // L_CHUNK)
 
 
-@functools.lru_cache(maxsize=None)
-def _adjoint_fns():
-    """``(library, scratch_len, K3's entry point by value size)``, bound
-    once."""
-    from . import _build
-
-    lib = _build.load("sepaihrd_adjoint")
-    need = lib.sepaihrd_adjoint_scratch_len
-    need.restype = ctypes.c_longlong
-    need.argtypes = [ctypes.c_int] * 7
-    fns = {4: lib.sepaihrd_adjoint_f32, 8: lib.sepaihrd_adjoint_f64}
-    for fn in fns.values():
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] * 4
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-    lib.sepaihrd_adjoint_error_string.restype = ctypes.c_char_p
-    lib.sepaihrd_adjoint_error_string.argtypes = [ctypes.c_int]
-    return lib, need, fns
-
-
-def _raise_on(lib, err: int, what: str):
-    if err != 0:
-        msg = lib.sepaihrd_adjoint_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+# K3's C arguments before the stream
+_ADJOINT_ARGS = ((ctypes.c_void_p,) * 12 + (ctypes.c_longlong,)
+                 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 3
+                 + (ctypes.c_int,) + (ctypes.c_void_p,) * 2
+                 + (ctypes.c_int,) * 4 + (ctypes.POINTER(ctypes.c_int),))
 
 
 def _strict_incidence(cv: torch.Tensor) -> torch.Tensor:
@@ -115,9 +93,9 @@ def fused_forward_ckpt(y0: torch.Tensor, agevec: torch.Tensor,
     :func:`.sepaihrd_fused.choose_forward_regime`, for tests and timing. A
     launch counts in the tracer's ``launches`` under ``("k2", regime,
     tableau, chains)``."""
-    B, _n_runs, _T_obs = _check_inputs(y0, agevec, scal, beff, obs, valid, M,
-                                       run_start, run_count, runup_offset,
-                                       substeps)
+    B, _n_runs, _T_obs = check_forward_inputs(y0, agevec, scal, beff, obs,
+                                              valid, M, run_start, run_count,
+                                              runup_offset, substeps)
     check_regime(regime)
     kw = dict(run_start=run_start, run_count=run_count,
               runup_offset=runup_offset, substeps=substeps, tableau=tableau)
@@ -128,8 +106,8 @@ def fused_forward_ckpt(y0: torch.Tensor, agevec: torch.Tensor,
         raise ValueError(f"unsupported device {y0.device}")
     ckpt = torch.empty((num_chunks(int(sum(run_count))), _CARRIED, N_AGES, B),
                        dtype=y0.dtype, device=y0.device)
-    out = _launch_forward(fused_forward_ckpt, y0, agevec, scal, beff, obs,
-                          valid, M, **kw, ckpt=ckpt, regime=regime)
+    out = launch_forward("fused_forward_ckpt", y0, agevec, scal, beff, obs,
+                         valid, M, **kw, ckpt=ckpt, regime=regime)
     return out, ckpt
 
 
@@ -239,44 +217,35 @@ def _launch_adjoint(agevec, scal, beff, obs, valid, ckpt, g, M, *, run_start,
     """Launch K3 on validated CUDA inputs: ``((dy0, dagevec, dscal, dbeff),
     regime, kernels launched)``. ``regime`` forces 1 or 2 past
     :func:`choose_regime`; only the card checks pass it."""
-    from ._build import tableau_id
-
-    lib, need, fns = _adjoint_fns()
+    need = bind("sepaihrd_adjoint", "sepaihrd_adjoint_scratch_len",
+                (ctypes.c_int,) * 7, ctypes.c_longlong)
     S, _fsal, a, b, m, rs, rc = host_consts(tableau, substeps, M, run_start,
                                             run_count)
     dev, dtype = agevec.device, agevec.dtype
     B, n_runs, n_chunks = agevec.shape[-1], len(run_start), ckpt.shape[0]
     n_intervals = int(sum(run_count))
     elem = torch.finfo(dtype).bits // 8
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-        if regime is None:
-            regime = choose_regime(
-                B, n_chunks, sm_count, elem,
-                elem * need(1, B, int(substeps), S, n_intervals, n_runs, 1))
-        # regime 2 holds the substep states of one wave of chunks at a time
-        per_chunk = elem * L_CHUNK * int(substeps) * _CARRIED * N_AGES * B
-        wave = max(1, min(n_chunks, SCRATCH_CAP // per_chunk))
-        scratch = torch.empty(
-            (need(regime, B, int(substeps), S, n_intervals, n_runs, wave),),
-            dtype=dtype, device=dev)
-        dy0 = torch.empty((C.NUM_COMPARTMENTS, N_AGES, B), dtype=dtype,
-                          device=dev)
-        dagevec = torch.empty((8, N_AGES, B), dtype=dtype, device=dev)
-        dscal = torch.empty((7, B), dtype=dtype, device=dev)
-        dbeff = torch.empty((n_runs, B), dtype=dtype, device=dev)
-        n_kernels = ctypes.c_int(0)
-        err = fns[elem](agevec.data_ptr(), scal.data_ptr(), beff.data_ptr(),
-                 obs.data_ptr(), valid.data_ptr(), ckpt.data_ptr(),
-                 g.data_ptr(), dy0.data_ptr(), dagevec.data_ptr(),
-                 dscal.data_ptr(), dbeff.data_ptr(), scratch.data_ptr(),
-                 scratch.numel(), B, obs.shape[0], int(runup_offset),
-                 int(substeps), tableau_id(tableau), a, b, m, n_runs, rs, rc,
-                 n_chunks, int(regime), wave, sm_count,
-                 ctypes.byref(n_kernels), stream)
-    _raise_on(lib, err, "sepaihrd_adjoint")
-    return (dy0, dagevec, dscal, dbeff), int(regime), n_kernels.value
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    if regime is None:
+        regime = choose_regime(
+            B, n_chunks, sm_count, elem,
+            elem * need(1, B, int(substeps), S, n_intervals, n_runs, 1))
+    # regime 2 holds the substep states of one wave of chunks at a time
+    per_chunk = elem * L_CHUNK * int(substeps) * _CARRIED * N_AGES * B
+    wave = max(1, min(n_chunks, SCRATCH_CAP // per_chunk))
+    new = lambda *shape: torch.empty(shape, dtype=dtype, device=dev)
+    scratch = new(need(regime, B, int(substeps), S, n_intervals, n_runs, wave))
+    outs = (new(C.NUM_COMPARTMENTS, N_AGES, B), new(8, N_AGES, B), new(7, B),
+            new(n_runs, B))
+    n_kernels = ctypes.c_int(0)
+    launch("sepaihrd_adjoint", dev, "sepaihrd_adjoint",
+           f"sepaihrd_adjoint_{SUFFIX[elem]}", _ADJOINT_ARGS,
+           *(t.data_ptr() for t in (agevec, scal, beff, obs, valid, ckpt, g)
+             + outs + (scratch,)),
+           scratch.numel(), B, obs.shape[0], int(runup_offset), int(substeps),
+           tableau_id(tableau), a, b, m, n_runs, rs, rc, n_chunks,
+           int(regime), wave, sm_count, ctypes.byref(n_kernels))
+    return outs, int(regime), n_kernels.value
 
 
 def fused_adjoint_reference(agevec, scal, beff, obs, valid, ckpt, g, M, *,

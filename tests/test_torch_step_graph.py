@@ -354,3 +354,62 @@ def test_graphed_campaign_equals_eager(cuda, monkeypatch, tmp_path, B, tableau,
     assert_bit_equal(res0.samples, samples0)
     assert_bit_equal(res0.sample_logps, logps0)
     assert not torch.equal(res0.final_state.x, graphed.final_state.x)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("user", ["objective", "step"])
+def test_a_replay_adds_what_its_capture_took_back(cuda, monkeypatch, user):
+    """For both users of the graph cache, at 64 chains (float32, dopri5@4):
+    every call counts one prep, one K1 (split) and one mask launch (the AM
+    step: its objective call's), eager, capturing or replayed; a capture
+    takes back what it counted (the step's own graphs: nothing, they launch
+    no kernel of the port) and each replay adds exactly that again."""
+    pipe = load_spain_pipeline(REPO, dtype=torch.float32, device=cuda)
+    ll = build_objective_fused(pipe.space, pipe.params, pipe.data, pipe.ts,
+                               substeps=4, tableau="dopri5",
+                               constraint_mode=REFLECT, dtype=torch.float32,
+                               device=cuda)
+    B, d = 64, pipe.space.dim
+    g = torch.Generator(device=cuda).manual_seed(7)
+    theta0 = pipe.space.extract(pipe.params).to(torch.float32)
+    x = pipe.space.reflect(theta0 + 0.1 * pipe.space.sigmas.to(torch.float32)
+                           * torch.randn(B, d, generator=g, device=cuda))
+    if user == "objective":
+        run, counter = (lambda: ll(x)), "objective.graph"
+    else:
+        state = init_mh_state(pipe.space, x, ll, None)
+        ll(x)                    # the objective replays from here on
+        graphs = mh._StepGraphs(pipe.space, MHConfig())
+
+        def run():
+            nonlocal state
+            z = torch.randn(B, d, generator=g, device=cuda)
+            u = torch.rand(B, generator=g, device=cuda)
+            state = graphs(state, z, u, ll)
+
+        counter = "mh.graph"
+    eager = 1 if user == "objective" else mh.EAGER_STEPS
+    one_call = [(("prep", REFLECT, B), 1), (("k1", 1, "dopri5", B), 1),
+                (("mask", B), 1)]
+    calls = []
+    count = trace.count
+    monkeypatch.setattr(trace, "count", lambda name, key=(), n=1: (
+        calls.append((name, key, n)), count(name, key, n))[1])
+    for kind in ["eager"] * eager + ["capture", "replay", "replay"]:
+        calls.clear()
+        run()
+        assert [(k, n) for name, k, n in calls if name == counter] == [
+            ((kind, B), 1)]
+        launches = [(k, n) for name, k, n in calls if name == "launches"]
+        taken = [(k, -n) for k, n in launches if n < 0]
+        added = [(k, n) for k, n in launches if n > 0]
+        if kind == "capture" and user == "objective":
+            # counted while captured, taken back, added by the replay
+            assert taken == one_call and added == one_call * 2
+        else:
+            assert taken == [] and added == one_call, kind
+    if user == "step":
+        entry, = graphs.cache.entries.values()
+        assert entry.counts == [[], []]
+    torch.cuda.synchronize(cuda)

@@ -1,5 +1,6 @@
-"""K1's value call replayed as a CUDA graph (``ops.sepaihrd_fused``'s
-``_ValueGraphs``) and the prep behind it, on the Spain-2020 space.
+"""K1's value call replayed as a CUDA graph (``build_objective_fused`` on
+``utils.graphs.GraphCache``) and the prep behind it, on the Spain-2020
+space.
 
 This file imports nothing of JAX, so the card (which has no JAX) can run it:
 
@@ -12,7 +13,9 @@ prep span. Card tests (marked ``cuda``): at the samplers' chain counts
 and the benchmark's two solvers, a replayed call equals the eager call on
 the same thetas bit for bit, with rows reflected into the bounds, floored
 (an initial state past N) and NaN; a kept result is never overwritten by a
-later call; each replay counts one K1 launch and one ``replay``.
+later call; each replay counts one K1 launch and one ``replay``; past
+``VALUE_GRAPHS`` shapes the least recently used one is dropped and
+recaptured when it comes back.
 """
 
 import os
@@ -317,3 +320,37 @@ def test_value_and_grad_on_the_card_equals_the_list_scatter(cuda, monkeypatch):
     ll_old, g_old = vg(x)
     assert_bit_equal(ll, ll_old)
     assert_bit_equal(g, g_old)
+
+
+@pytest.mark.cuda
+def test_value_cache_evicts_the_oldest_and_recaptures_it(cuda):
+    """At ``VALUE_GRAPHS + 1`` shapes (B = 1 ... 9, float32, dopri5@4) each
+    shape's second call captures, and the ninth capture drops the least
+    recently used shape's graph (B = 1); B = 1 recaptures when it comes
+    back, with no eager call, and drops B = 2 in turn, which recaptures too,
+    while B = 9 still replays. Every call, eager, captured, replayed or
+    recaptured, equals the eager call of a fresh objective bit for bit."""
+    space, params, data, ts = spain(True, torch.float32, cuda)
+
+    def build():
+        return build_objective_fused(space, params, data, ts, substeps=4,
+                                     tableau="dopri5", constraint_mode=REFLECT,
+                                     dtype=torch.float32, device=cuda)
+
+    sizes = range(1, sf.VALUE_GRAPHS + 2)
+    xs = {B: batches(space, params, B)[0] for B in sizes}
+    fresh = build()
+    eager = {B: fresh(x) for B, x in xs.items()}
+    assert trace.counts("objective.graph") == {("eager", B): 1 for B in sizes}
+    ll = build()
+    for B in sizes:
+        for kind in ("eager", "capture"):
+            got, _launched, graph = _counted(lambda: ll(xs[B]))
+            assert graph == {(kind, B): 1}
+            assert_bit_equal(got, eager[B])
+    for B, kind in ((1, "capture"), (2, "capture"), (9, "replay"),
+                    (1, "replay")):
+        got, launched, graph = _counted(lambda: ll(xs[B]))
+        assert graph == {(kind, B): 1}, B
+        assert launched == {(sf.SPLIT, "dopri5", B): 1}
+        assert_bit_equal(got, eager[B])
