@@ -38,10 +38,14 @@ def _to_numpy(v) -> np.ndarray:
 
 def _save_state_npz(path: str, state) -> None:
     """Atomic NamedTuple-of-tensors save: write a tmp npz, then rename. One
-    routine for the MH/PT/NUTS savers. The tracer's spans
-    ``checkpoint.to_host`` (every field to NumPy) and ``checkpoint.write``
-    (compress, write, rename); the file's size counts in
-    ``checkpoint.bytes``."""
+    routine for the MH/PT/NUTS savers. The npz is stored, not deflated:
+    float32 state hardly compresses (under 10 %), and deflating an
+    8192-chain state held an H100 idle for about a quarter of each
+    1000-step campaign segment. ``np.load`` reads stored and deflated
+    members alike, so the JAX package's (deflated) files still load here
+    and these load there. The tracer's spans ``checkpoint.to_host`` (every
+    field to NumPy) and ``checkpoint.write`` (write, rename); the file's
+    size counts in ``checkpoint.bytes``."""
     d = os.path.dirname(os.path.abspath(path))
     if d:
         os.makedirs(d, exist_ok=True)
@@ -49,7 +53,7 @@ def _save_state_npz(path: str, state) -> None:
     with span("checkpoint.to_host"):
         arrays = {k: _to_numpy(v) for k, v in state._asdict().items()}
     with span("checkpoint.write"):
-        np.savez_compressed(tmp, **arrays)
+        np.savez(tmp, **arrays)
         os.replace(tmp, path)
     count("checkpoint.bytes", n=os.path.getsize(path))
 

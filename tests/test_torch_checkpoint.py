@@ -7,6 +7,7 @@ gets the JAX package's synthesized ladder, and the trace CSV has the JAX
 writer's bytes."""
 
 import os
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -221,6 +222,76 @@ def test_checkpointed_resume_when_thinning_not_dividing_segment(tmp_path,
     assert resumed.samples.shape[0] == 3      # exactly segment 5
     assert torch.equal(resumed.samples, full.samples[15:])
     assert torch.equal(resumed.final_state.x, full.final_state.x)
+
+
+def _port_state(kind, problem):
+    """A small port state of each saver's type: MH and NUTS from short
+    runs, PT from ``init_pt_state``."""
+    loglik, space = problem
+    theta0 = torch.zeros(2, dtype=F64)
+    if kind == "mh":
+        return run_mh(loglik, space, theta0,
+                      MHConfig(iterations=8, burn_in=2, thinning=4),
+                      n_chains=4, draws=_seg(3, 0)).final_state
+    if kind == "pt":
+        z = torch.randn((3 * 4, 2), dtype=F64,
+                        generator=torch.Generator().manual_seed(4))
+        return tpt.init_pt_state(space, theta0, loglik, z, n_rungs=3,
+                                 n_chains=4)
+    saved = {}
+    run_nuts(loglik, space, theta0,
+             NUTSConfig(iterations=4, adaptation_window=2, max_tree_depth=2),
+             seed=3, n_chains=4, segments=2,
+             on_segment=lambda st, xs, lps: saved.setdefault("s", st))
+    return saved["s"]
+
+
+@pytest.mark.parametrize("kind", ["mh", "pt", "nuts"])
+def test_checkpoint_members_are_stored(tmp_path, problem, kind):
+    """Every saver writes a stored (not deflated) npz, one member a field,
+    atomically: no tmp file is left beside it, and it loads back equal."""
+    save = getattr(tck, f"save_{kind}_state")
+    load = getattr(tck, f"load_{kind}_state")
+    state = _port_state(kind, problem)
+    path = str(tmp_path / f"{kind}.npz")
+    save(path, state)
+    with zipfile.ZipFile(path) as zf:
+        infos = zf.infolist()
+    assert sorted(i.filename for i in infos) == sorted(
+        f + ".npy" for f in state._fields)
+    assert all(i.compress_type == zipfile.ZIP_STORED for i in infos)
+    assert os.listdir(tmp_path) == [f"{kind}.npz"]
+    _equal_states(load(path), state)
+
+
+def test_deflated_checkpoint_resumes_campaign(tmp_path, problem):
+    """A deflated MH checkpoint (``np.savez_compressed``, as the JAX package
+    and the port's earlier files are written) of a campaign killed after
+    one segment resumes it to the bit: the remaining segments' samples and
+    the final state equal the uninterrupted campaign's."""
+    loglik, space = problem
+    cfg = MHConfig(iterations=60, burn_in=10, adaptation_period=20, thinning=4)
+    theta0 = torch.zeros(2, dtype=F64)
+    full = run_mh_checkpointed(loglik, space, theta0, cfg, seed=77,
+                               n_chains=8, segments=3,
+                               checkpoint_path=str(tmp_path / "full.npz"))
+
+    part = run_mh_checkpointed(loglik, space, theta0,
+                               MHConfig(iterations=20, burn_in=10,
+                                        adaptation_period=20, thinning=4),
+                               seed=77, n_chains=8, segments=1)
+    ckpt = str(tmp_path / "deflated.npz")
+    np.savez_compressed(ckpt, **{k: tck._to_numpy(v) for k, v in
+                                 part.final_state._asdict().items()})
+    with zipfile.ZipFile(ckpt) as zf:
+        assert all(i.compress_type == zipfile.ZIP_DEFLATED
+                   for i in zf.infolist())
+    resumed = run_mh_checkpointed(loglik, space, theta0, cfg, seed=77,
+                                  n_chains=8, segments=3,
+                                  checkpoint_path=ckpt)
+    assert torch.equal(resumed.samples, full.samples[5:])
+    assert torch.equal(resumed.sample_logps, full.sample_logps[5:])
+    _equal_states(resumed.final_state, full.final_state)
 
 
 # ------------------------------------------- files across the packages
