@@ -28,7 +28,9 @@ The step counter is a Python int, so the swap cadence, the ladder's burn-in
 freeze and the covariance schedule cost no host read. Draws come from a draw
 source (:mod:`.draws`) as for :mod:`.mh`. The cold rung's thinned history is
 the returned sample; the MAP is taken over ALL rungs (hot-rung
-log-densities are untempered, hence comparable).
+log-densities are untempered, hence comparable). :func:`run_pt_checkpointed`
+is the campaign driver: segments of the segment program with a disk
+checkpoint after each, as :func:`.mh.run_mh_checkpointed` runs AM-MH.
 
 Sharding (``mesh``, as in :mod:`.mh`) splits the CHAIN axis (dim 1) of the
 ``(K, N, ...)`` fields; the rung axis stays whole on every rank. Swaps
@@ -41,13 +43,15 @@ on every rank.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..parallel.mesh import LOCAL
-from .draws import GeneratorDraws, shard_draws
+from ..utils.trace import count, span
+from .draws import GeneratorDraws, SeededRunDraws, shard_draws
 from .mh import safe_logp
 from .param_space import ParameterSpace
 
@@ -316,12 +320,23 @@ def pt_adapt_covariance(state: PTState, cfg: PTConfig,
 
 
 def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
-                   loglik_batch: Callable, mesh=LOCAL) -> Callable:
+                   loglik_batch: Callable, mesh=LOCAL, *,
+                   progress_fn: Optional[Callable] = None) -> Callable:
     """The segment program ``run(state0, draws) -> PTResult`` (the PT
     :func:`.mh.make_mh_runner`): step ``i`` takes ``draws.step(i)`` over
     ``K * N`` chains and, on a swap sweep, ``draws.swap(i, (K-1, N))``. On
     a ``mesh`` the state holds this rank's chains of every rung and the
-    result's samples and acceptance are gathered from every rank."""
+    result's samples and acceptance are gathered from every rank.
+    ``progress_fn(step, accept_rate, best_logp, mean_scale)``, over every
+    rung's chains, is called after each block: the only host reads of the
+    run.
+
+    The tracer's spans of a run: ``pt.draws`` (a step's ``draws.step``, and
+    ``draws.swap`` on a sweep), ``pt.step`` (:func:`pt_mh_step`, holding
+    the objective's own spans), ``pt.swap`` (:func:`pt_swap_step`),
+    ``pt.adapt_ladder``, ``pt.adapt_cov`` and ``pt.finish`` (the stack,
+    the MAP and the gathers at the end); the counter ``pt.sweeps`` counts
+    the swap sweeps by ``(pair parity, K, N)``."""
     if cfg.iterations <= 0:
         raise ValueError(f"iterations must be positive, got {cfg.iterations}")
     thin = max(1, cfg.thinning)
@@ -336,44 +351,60 @@ def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
         for block in range(n_blocks):
             for t in range(thin):
                 i = block * thin + t
-                z, u = draws.step(i)
-                state = pt_mh_step(state, z.reshape(K, N, d), u.reshape(K, N),
-                                   space, loglik_batch, cfg, state.betas)
+                with span("pt.draws"):
+                    z, u = draws.step(i)
+                with span("pt.step"):
+                    state = pt_mh_step(state, z.reshape(K, N, d),
+                                       u.reshape(K, N), space, loglik_batch,
+                                       cfg, state.betas)
                 if state.step % swap_every == 0:
                     # pair parity alternates between swap sweeps
-                    state = pt_swap_step(state, draws.swap(i, (K - 1, N)),
-                                         state.betas,
-                                         state.step // swap_every,
-                                         ema=cfg.ladder_ema, mesh=mesh)
+                    parity = (state.step // swap_every) % 2
+                    with span("pt.draws"):
+                        u_swap = draws.swap(i, (K - 1, N))
+                    with span("pt.swap"):
+                        state = pt_swap_step(state, u_swap, state.betas,
+                                             parity, ema=cfg.ladder_ema,
+                                             mesh=mesh)
+                    count("pt.sweeps", (parity, K, N))
                     if cfg.adapt_ladder and state.step <= cfg.burn_in:
-                        state = pt_adapt_ladder(state, cfg)
+                        with span("pt.adapt_ladder"):
+                            state = pt_adapt_ladder(state, cfg)
             # Unlike mh.py, covariance adaptation runs from step 0: PT
             # burn-in doubles as the ladder-adaptation window, and freezing
             # every rung's proposal at the warm init that long would cripple
             # mixing and feed the ladder swap rates from a mis-scaled
             # sampler. Burn-in still gates the ladder freeze.
             if (state.step // thin) % adapt_every_blocks == 0:
-                state = pt_adapt_covariance(state, cfg, mesh)
+                with span("pt.adapt_cov"):
+                    state = pt_adapt_covariance(state, cfg, mesh)
+            if progress_fn is not None:
+                progress_fn(state.step,
+                            float(mesh.mean(state.accept_count
+                                            / max(state.step, 1))),
+                            float(mesh.pmax(torch.max(state.best_logp))),
+                            float(mesh.mean(torch.exp(state.log_scale))))
             samples.append(state.x[0])
             logps.append(state.logp[0])
-        # the first maximum in the unsharded (K, n_total) rung-major order
-        n_total = N * mesh.world_size
-        ids = (torch.arange(K, device=state.x.device)[:, None] * n_total
-               + mesh.offset(n_total)
-               + torch.arange(N, device=state.x.device)[None, :])
-        best_x, best_logp = mesh.first_max(state.best_logp.reshape(-1),
-                                           state.best_x.reshape(K * N, d),
-                                           ids.reshape(-1))
-        dtype = state.x.dtype
-        return PTResult(
-            samples=mesh.all_gather(torch.stack(samples), dim=1),
-            sample_logps=mesh.all_gather(torch.stack(logps), dim=1),
-            best_x=best_x, best_logp=best_logp,
-            acceptance_rate=mesh.all_gather(
-                state.accept_count.to(dtype) / max(state.step, 1), dim=1),
-            swap_rate=state.swap_accept.to(dtype)
-            / torch.clamp_min(state.swap_tries, 1).to(dtype),
-            final_state=state)
+        with span("pt.finish"):
+            # the first maximum in the unsharded (K, n_total) rung-major order
+            n_total = N * mesh.world_size
+            ids = (torch.arange(K, device=state.x.device)[:, None] * n_total
+                   + mesh.offset(n_total)
+                   + torch.arange(N, device=state.x.device)[None, :])
+            best_x, best_logp = mesh.first_max(state.best_logp.reshape(-1),
+                                               state.best_x.reshape(K * N, d),
+                                               ids.reshape(-1))
+            dtype = state.x.dtype
+            return PTResult(
+                samples=mesh.all_gather(torch.stack(samples), dim=1),
+                sample_logps=mesh.all_gather(torch.stack(logps), dim=1),
+                best_x=best_x, best_logp=best_logp,
+                acceptance_rate=mesh.all_gather(
+                    state.accept_count.to(dtype) / max(state.step, 1), dim=1),
+                swap_rate=state.swap_accept.to(dtype)
+                / torch.clamp_min(state.swap_tries, 1).to(dtype),
+                final_state=state)
 
     return run
 
@@ -413,3 +444,97 @@ def run_pt(loglik_batch: Callable, space: ParameterSpace,
                               betas=cfg.ladder(dtype, dev),
                               offset=mesh.offset(n_chains))
     return run(state, draws)
+
+
+def run_pt_checkpointed(
+    loglik_batch: Callable,
+    space: ParameterSpace,
+    theta0: torch.Tensor,
+    cfg: PTConfig,
+    *,
+    seed: int = 0,
+    n_chains: int = 8,
+    segments: int = 10,
+    checkpoint_path: Optional[str] = None,
+    resume: bool = True,
+    initial_cov: Optional[torch.Tensor] = None,
+    jitter: float = 1.0,
+    progress_fn: Optional[Callable] = None,
+    on_segment: Optional[Callable] = None,
+    draws_for_segment: Optional[Callable] = None,
+) -> PTResult:
+    """The replica-exchange campaign driver (the PT
+    :func:`.mh.run_mh_checkpointed`): ``cfg.iterations`` split into
+    ``segments`` segments of the segment program (:func:`make_pt_runner`)
+    with a disk checkpoint (:func:`~..utils.checkpoint.save_pt_state`)
+    after each. ``n_chains`` is the count a rung, as in :func:`run_pt`.
+
+    ``on_segment(segment_index, segment_result)`` fires after each segment,
+    BEFORE the state checkpoint is written (artifacts first, state last: the
+    checkpoint is the commit point). ``resume=True`` continues from an
+    existing checkpoint at the segment its step falls in: each segment runs
+    ``ceil(per_segment / thinning) * thinning`` steps, and the resume index
+    divides by that. A checkpoint that already covers every segment raises
+    ``ValueError``. A resume is not logged: the caller reports it.
+
+    Segment ``s`` draws from ``draws_for_segment(s)``, by default a
+    :class:`~.draws.SeededRunDraws` of ``(seed, s)`` over every rung's
+    chains, so a killed-and-resumed campaign gives exactly the
+    uninterrupted campaign's samples. The returned :class:`PTResult` is the
+    last segment's, with the cold rung's thinned samples of every segment
+    run in THIS process, moved to the host segment by segment.
+
+    The tracer's spans of a segment: ``campaign.segment`` (the segment
+    program), ``campaign.to_host`` (the thinned samples' copy) and
+    ``campaign.checkpoint`` (``save_pt_state``).
+    """
+    if segments <= 0:
+        raise ValueError("segments must be positive")
+    per_segment = -(-cfg.iterations // segments)
+    seg_cfg = dataclasses.replace(cfg, iterations=per_segment)
+    K = cfg.n_rungs
+    dtype, dev = theta0.dtype, theta0.device
+    if draws_for_segment is None:
+        draws_for_segment = lambda s: SeededRunDraws(seed, s, K * n_chains,
+                                                     space.dim, dtype, dev)
+
+    state = None
+    start_segment = 0
+    if checkpoint_path and resume and os.path.exists(checkpoint_path):
+        from ..utils.checkpoint import load_pt_state
+
+        state = load_pt_state(checkpoint_path, device=dev)
+        thin = max(1, cfg.thinning)
+        start_segment = state.step // (-(-per_segment // thin) * thin)
+
+    runner = make_pt_runner(space, seg_cfg, loglik_batch,
+                            progress_fn=progress_fn)
+    all_samples, all_logps = [], []
+    result = None
+    for s in range(start_segment, segments):
+        draws = draws_for_segment(s)
+        if state is None:
+            state = init_pt_state(space, theta0, loglik_batch, draws.init(),
+                                  n_rungs=K, n_chains=n_chains, jitter=jitter,
+                                  initial_cov=initial_cov,
+                                  reg_eps=seg_cfg.regularization_epsilon,
+                                  betas=cfg.ladder(dtype, dev))
+        with span("campaign.segment"):
+            result = runner(state, draws)
+        state = result.final_state
+        with span("campaign.to_host"):
+            all_samples.append(result.samples.cpu())
+            all_logps.append(result.sample_logps.cpu())
+        if on_segment is not None:
+            on_segment(s, result)
+        if checkpoint_path:
+            from ..utils.checkpoint import save_pt_state
+
+            with span("campaign.checkpoint"):
+                save_pt_state(checkpoint_path, state)
+    if result is None:   # fully resumed campaign with nothing left to run
+        raise ValueError(
+            f"checkpoint already covers all {segments} segments "
+            f"({state.step} steps); nothing to run")
+    return result._replace(samples=torch.cat(all_samples),
+                           sample_logps=torch.cat(all_logps))

@@ -127,15 +127,12 @@ def run(argv=None) -> dict:
     from ..analysis import generate_full_report
     from ..analysis.diagnostics import summarize
     from ..calibration.calibrator import condition_covariance
-    from ..calibration.draws import SeededRunDraws
     from ..calibration.mh import MHConfig, run_mh_checkpointed
     from ..calibration.param_space import REFLECT
-    from ..calibration.tempering import (PTConfig, init_pt_state,
-                                         make_pt_runner)
+    from ..calibration.tempering import PTConfig, run_pt_checkpointed
     from ..data import read_sepaihrd_parameters, save_calibration_results
     from ..ops import build_objective_fused
-    from ..utils.checkpoint import (load_pt_state, save_pt_state,
-                                    write_posterior_trace)
+    from ..utils.checkpoint import write_posterior_trace
     from ..utils.device import resolve_device
     from .common import load_spain_pipeline
 
@@ -188,44 +185,31 @@ def run(argv=None) -> dict:
     os.makedirs(args.out, exist_ok=True)
     t0 = time.perf_counter()
     swap_rate = None
-    per_segment = -(-args.iterations // args.segments)
     if args.rungs > 1:
         # replica-exchange campaign: --chains slots split over the ladder;
         # the returned samples are the cold rung's
         n_per_rung, rem = divmod(args.chains, args.rungs)
         if rem:
             raise SystemExit("--chains must divide evenly by --rungs")
-        pt_cfg = PTConfig(iterations=per_segment, burn_in=args.burn_in,
+        pt_cfg = PTConfig(iterations=args.iterations, burn_in=args.burn_in,
                           adaptation_period=100, thinning=args.thinning,
                           n_rungs=args.rungs, beta_min=args.beta_min)
         ckpt = os.path.join(args.out, "campaign_checkpoint_pt.npz")
-        state, start = None, 0
         resumed = os.path.exists(ckpt)
         if resumed:
-            state = load_pt_state(ckpt, device=dev)
-            # each segment runs whole thinning blocks: divide by the steps
-            # actually run, not the nominal per_segment
-            start = state.step // (-(-per_segment // args.thinning)
-                                   * args.thinning)
-            print(f"resuming PT campaign at step {state.step}")
-        runner = make_pt_runner(space, pt_cfg, ll_batch)
-        res = None
-        for s in range(start, args.segments):
-            draws = SeededRunDraws(args.seed, s, args.chains, space.dim,
-                                   dtype, dev)
-            if state is None:
-                state = init_pt_state(space, theta0, ll_batch, draws.init(),
-                                      n_rungs=args.rungs,
-                                      n_chains=n_per_rung,
-                                      initial_cov=initial_cov,
-                                      betas=pt_cfg.ladder(dtype, dev))
-            res = runner(state, draws)
-            state = res.final_state
+            with np.load(ckpt) as z:
+                print(f"resuming PT campaign at step {int(z['step'])}")
+        try:
             # this segment's cold-rung draws beside the checkpoint, written
             # first: a resumed campaign's posterior covers earlier segments
-            _save_segment(args.out, "pt", s, res)
-            save_pt_state(ckpt, state)
-        if res is None:
+            res = run_pt_checkpointed(
+                ll_batch, space, theta0, pt_cfg, seed=args.seed,
+                n_chains=n_per_rung, segments=args.segments,
+                checkpoint_path=ckpt, initial_cov=initial_cov,
+                on_segment=lambda s, r: _save_segment(args.out, "pt", s, r))
+        except ValueError as e:
+            if "already covers" not in str(e):
+                raise
             raise SystemExit("PT checkpoint already covers all segments")
         all_samples, all_logps = _segment_posterior(args.out, "pt",
                                                     args.segments)
