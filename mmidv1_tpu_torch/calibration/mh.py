@@ -304,8 +304,9 @@ def mh_accept(state: MHState, proposal: torch.Tensor, logp_prop: torch.Tensor,
         accept_count=accept_count, step=step)
 
 
-# eager AM steps at a (device, dtype, chain count) before the step graphs
-# capture: they warm the allocator, cuBLAS and the kernels
+# eager steps at a (device, dtype, chain count) before the step graphs
+# capture, AM's here and PT's (tempering._StepGraphs): they warm the
+# allocator, cuBLAS and the kernels
 EAGER_STEPS = 2
 # the state fields the step graphs hold in fixed buffers
 _BUFFERED = ("chol", "x", "logp", "log_scale", "best_x", "best_logp",

@@ -51,8 +51,10 @@ import torch
 
 from ..parallel.mesh import LOCAL
 from ..utils.trace import count, span
+from ..utils.graphs import GraphCache
+from . import mh
 from .draws import GeneratorDraws, SeededRunDraws, shard_draws
-from .mh import safe_logp
+from .mh import rm_gain, safe_logp
 from .param_space import ParameterSpace
 
 
@@ -198,59 +200,99 @@ def pt_mh_step(state: PTState, z: torch.Tensor, u: torch.Tensor,
                space: ParameterSpace, loglik_batch: Callable, cfg: PTConfig,
                betas: torch.Tensor) -> PTState:
     """One tempered Metropolis update of every chain on every rung, given
-    its draws ``z (K, N, d)`` and ``u (K, N)``: one objective call over
-    ``K * N`` rows."""
+    its draws ``z (K, N, d)`` and ``u (K, N)``: :func:`pt_propose`, one
+    objective call over ``K * N`` rows, then :func:`pt_accept`."""
     K, N, d = state.x.shape
-    dtype = state.x.dtype
+    proposal = pt_propose(state, z, space)
+    logp_prop = loglik_batch(proposal.reshape(K * N, d)).reshape(K, N)
+    return pt_accept(state, proposal, logp_prop, u, cfg, betas)
+
+
+def pt_propose(state: PTState, z: torch.Tensor,
+               space: ParameterSpace) -> torch.Tensor:
+    """The part of :func:`pt_mh_step` before the objective call: the
+    reflected per-rung correlated proposals ``(K, N, d)``."""
     scale = torch.exp(state.log_scale)[..., None]
     # per-rung correlated proposal z @ L_k^T (TF32 is off: utils/device.py)
     corr = torch.einsum("knd,ked->kne", z, state.chol)
-    proposal = space.reflect(state.x + scale * corr)
+    return space.reflect(state.x + scale * corr)
 
-    logp_prop = safe_logp(loglik_batch(proposal.reshape(K * N, d))) \
-        .reshape(K, N)
+
+def pt_accept(state: PTState, proposal: torch.Tensor,
+              logp_prop: torch.Tensor, u: torch.Tensor, cfg: PTConfig,
+              betas: torch.Tensor, *, gamma=None,
+              in_place: bool = False) -> PTState:
+    """The part of :func:`pt_mh_step` after the objective call, given its
+    values ``logp_prop (K, N)`` at ``proposal``: the tempered accept test,
+    the new positions and values, each slot's best, the Robbins-Monro scale
+    and the accept count. ``gamma`` and ``in_place`` are those of
+    :func:`.mh.mh_accept`: the step's gain as a 0-dim tensor (the same bits
+    as the Python float :func:`.mh.rm_gain` gives), and each new field
+    written into ``state``'s own tensor (the step graphs' buffers) after
+    every old value it needs is read."""
+    dtype = state.x.dtype
+    out = (lambda f: getattr(state, f)) if in_place else (lambda f: None)
+    logp_prop = safe_logp(logp_prop)
     log_ratio = betas[:, None] * (logp_prop - state.logp)
     accept = (log_ratio >= 0) | (torch.log(torch.clamp_min(u, 1e-12))
                                  < log_ratio)
 
-    x = torch.where(accept[..., None], proposal, state.x)
-    logp = torch.where(accept, logp_prop, state.logp)
+    x = torch.where(accept[..., None], proposal, state.x, out=out("x"))
+    logp = torch.where(accept, logp_prop, state.logp, out=out("logp"))
 
     better = logp > state.best_logp
-    best_x = torch.where(better[..., None], x, state.best_x)
-    best_logp = torch.where(better, logp, state.best_logp)
+    best_x = torch.where(better[..., None], x, state.best_x,
+                         out=out("best_x"))
+    best_logp = torch.where(better, logp, state.best_logp,
+                            out=out("best_logp"))
 
     step = state.step + 1
     if cfg.adapt_scale:
-        gamma = min(1.0 / np.sqrt(step + 1.0), 0.1)
+        if gamma is None:
+            gamma = rm_gain(step)
         log_scale = torch.clamp(state.log_scale + gamma * (
-            accept.to(dtype) - cfg.target_acceptance_rate), -6.9, 2.3)
+            accept.to(dtype) - cfg.target_acceptance_rate), -6.9, 2.3,
+            out=out("log_scale"))
     else:
         log_scale = state.log_scale
+    accept_count = torch.add(state.accept_count, accept.to(torch.int32),
+                             out=out("accept_count"))
 
     return state._replace(
         x=x, logp=logp, log_scale=log_scale, best_x=best_x,
-        best_logp=best_logp,
-        accept_count=state.accept_count + accept.to(torch.int32), step=step)
+        best_logp=best_logp, accept_count=accept_count, step=step)
+
+
+def _pair_mask(K: int, parity: int, device) -> torch.Tensor:
+    """``(K-1,)``: the adjacent pairs ``(k, k+1)`` a sweep of ``parity``
+    tries, those with ``k = parity (mod 2)``."""
+    return (torch.arange(K - 1, device=device) % 2) == (parity % 2)
 
 
 def pt_swap_step(state: PTState, u: torch.Tensor, betas: torch.Tensor,
-                 parity: int, ema: float = 0.1, mesh=LOCAL) -> PTState:
+                 parity: int, ema: float = 0.1, mesh=LOCAL, *,
+                 pair_on: Optional[torch.Tensor] = None,
+                 in_place: bool = False) -> PTState:
     """One even-odd swap sweep, given its uniforms ``u (K-1, N)``: adjacent
     pairs (k, k+1) with k = parity (mod 2) exchange (x, logp) chain-column
     wise with the replica-exchange acceptance probability. Also keeps the
     per-pair mean swap-probability EMA the ladder adaptation reads (the
     analytic ``min(1, exp(log_alpha))`` averaged over every rank's
-    chains)."""
+    chains). ``pair_on``, the parity's pair mask as a tensor
+    (:func:`_pair_mask`), stands in for ``parity``; ``in_place`` writes
+    each new field into ``state``'s own tensor, as :func:`pt_accept`
+    does."""
     K, N, _d = state.x.shape
     n_total = N * mesh.world_size
     if K == 1:
         return state
     dev = state.x.device
+    out = (lambda f: getattr(state, f)) if in_place else (lambda f: None)
     dlogp = state.logp[1:] - state.logp[:-1]                 # (K-1, N)
     dbeta = (betas[:-1] - betas[1:])[:, None]                # (K-1, 1)
     log_alpha = dbeta * dlogp
-    pair_on = (torch.arange(K - 1, device=dev) % 2) == (parity % 2)
+    if pair_on is None:
+        pair_on = _pair_mask(K, parity, dev)
     accept = ((log_alpha >= 0) | (torch.log(torch.clamp_min(u, 1e-12))
                                   < log_alpha)) & pair_on[:, None]
 
@@ -258,25 +300,29 @@ def pt_swap_step(state: PTState, u: torch.Tensor, betas: torch.Tensor,
                                  dim=1)) / n_total
     swap_prob = torch.where(pair_on,
                             (1.0 - ema) * state.swap_prob + ema * p_pair,
-                            state.swap_prob)
+                            state.swap_prob, out=out("swap_prob"))
 
     pad = torch.zeros((1, N), dtype=torch.bool, device=dev)
     take_upper = torch.cat([accept, pad], dim=0)      # rung k <- k+1
     take_lower = torch.cat([pad, accept], dim=0)      # rung k <- k-1
 
-    def exchange(a):
+    def exchange(f):
+        a = getattr(state, f)
         down = torch.cat([a[1:], a[-1:]], dim=0)      # a[k+1]
         up = torch.cat([a[:1], a[:-1]], dim=0)        # a[k-1]
         tail = (1,) * (a.dim() - 2)
         m_up = take_upper.reshape(take_upper.shape + tail)
         m_lo = take_lower.reshape(take_lower.shape + tail)
-        return torch.where(m_up, down, torch.where(m_lo, up, a))
+        return torch.where(m_up, down, torch.where(m_lo, up, a), out=out(f))
 
     return state._replace(
-        x=exchange(state.x), logp=exchange(state.logp),
-        swap_accept=state.swap_accept
-        + mesh.psum(accept.sum(dim=1)).to(torch.int32),
-        swap_tries=state.swap_tries + (pair_on * n_total).to(torch.int32),
+        x=exchange("x"), logp=exchange("logp"),
+        swap_accept=torch.add(state.swap_accept,
+                              mesh.psum(accept.sum(dim=1)).to(torch.int32),
+                              out=out("swap_accept")),
+        swap_tries=torch.add(state.swap_tries,
+                             (pair_on * n_total).to(torch.int32),
+                             out=out("swap_tries")),
         swap_prob=swap_prob)
 
 
@@ -319,6 +365,148 @@ def pt_adapt_covariance(state: PTState, cfg: PTConfig,
         chol=torch.where(ok[:, None, None], chol, state.chol).contiguous())
 
 
+# the state fields the step graphs hold in fixed buffers
+_BUFFERED = ("x", "logp", "log_scale", "chol", "best_x", "best_logp",
+             "accept_count", "betas", "swap_accept", "swap_tries",
+             "swap_prob")
+
+
+class _StepBuffers:
+    """A tempered step's state, draws and gain, and a swap sweep's uniforms
+    and pair mask, in fixed tensors; the parts of :func:`pt_mh_step` and
+    :func:`pt_swap_step` on them: what :class:`_StepGraphs` captures.
+    :meth:`accept` and :meth:`swap` write the new state into the
+    buffers."""
+
+    def __init__(self, state: PTState, space: ParameterSpace, cfg: PTConfig):
+        self.space, self.cfg = space, cfg
+        self.state = state._replace(**{
+            f: torch.empty_like(getattr(state, f),
+                                memory_format=torch.contiguous_format)
+            for f in _BUFFERED})
+        K, N, _d = state.x.shape
+        self.z = torch.empty_like(state.x)
+        self.u = torch.empty_like(state.logp)
+        self.lp = torch.empty_like(state.logp)   # the objective's values
+        self.gamma = torch.empty((), dtype=state.x.dtype,
+                                 device=state.x.device)
+        self.u_swap = state.logp.new_empty((K - 1, N))
+        self.masks = tuple(_pair_mask(K, p, state.x.device) for p in (0, 1))
+        self.pair_on = torch.empty_like(self.masks[0])
+
+    def _load_state(self, state: PTState):
+        """Copy in the fields of ``state`` held outside the buffers (a new
+        segment's state, a new covariance factor or ladder)."""
+        for f in _BUFFERED:
+            src, buf = getattr(state, f), getattr(self.state, f)
+            if src is not buf:
+                buf.copy_(src)
+
+    def load(self, state: PTState, z: torch.Tensor, u: torch.Tensor):
+        """:meth:`_load_state`, then the draws and the gain of ``state``'s
+        next step."""
+        self._load_state(state)
+        self.z.copy_(z)
+        self.u.copy_(u)
+        if self.cfg.adapt_scale:
+            self.gamma.fill_(rm_gain(state.step + 1))
+
+    def load_swap(self, state: PTState, u_swap: torch.Tensor, parity: int):
+        """:meth:`_load_state`, then a sweep's uniforms and its pair mask."""
+        self._load_state(state)
+        self.u_swap.copy_(u_swap)
+        self.pair_on.copy_(self.masks[parity % 2])
+
+    def propose(self) -> torch.Tensor:
+        return pt_propose(self.state, self.z, self.space)
+
+    def accept(self, proposal: torch.Tensor):
+        """:func:`pt_accept` on the objective's values in ``lp``, in
+        place."""
+        pt_accept(self.state, proposal, self.lp, self.u, self.cfg,
+                  self.state.betas, gamma=self.gamma, in_place=True)
+
+    def swap(self):
+        """:func:`pt_swap_step` on ``u_swap`` and ``pair_on``, in place."""
+        pt_swap_step(self.state, self.u_swap, self.state.betas, 0,
+                     ema=self.cfg.ladder_ema, pair_on=self.pair_on,
+                     in_place=True)
+
+    def result(self, state: PTState, steps: int) -> PTState:
+        """The state ``steps`` steps after ``state``: the buffers, which the
+        next step overwrites."""
+        return self.state._replace(cov=state.cov, ladder_s=state.ladder_s,
+                                   step=state.step + steps)
+
+
+class _StepGraphs:
+    """The single-rank tempered step (:func:`pt_mh_step`) and swap sweep
+    (:func:`pt_swap_step`) replayed as three CUDA graphs a device, dtype
+    and ``(K, N)`` around the objective call, which stays a Python call
+    (:class:`..utils.graphs.GraphCache`: :data:`.mh.EAGER_STEPS` eager
+    steps first, counter ``pt.graph`` by ``K * N``): ``propose``
+    (:func:`pt_propose`) writes the proposals, ``accept`` (:func:`pt_accept`)
+    and ``swap`` the new state, into fixed buffers (:class:`_StepBuffers`).
+    A replayed step copies in what the state holds outside the buffers, its
+    draws and its gain, replays ``propose``, calls ``loglik_batch`` once on
+    the proposals (through whatever wraps it), copies the values in and
+    replays ``accept``; a sweep after it copies in its uniforms and its
+    parity's pair mask and replays ``swap``, so one graph serves both
+    parities and any ``swap_every``. The state returned holds the buffers,
+    which the next step overwrites: a caller copies what it keeps
+    (:meth:`release`)."""
+
+    def __init__(self, space: ParameterSpace, cfg: PTConfig):
+        self.space, self.cfg = space, cfg
+        self.cache = GraphCache("pt.graph", mh.EAGER_STEPS)
+        self.entry = None          # the graphs of the last step, or None
+
+    def step(self, state: PTState, z: torch.Tensor, u: torch.Tensor,
+             loglik_batch: Callable) -> PTState:
+        x = state.x
+        K, N, d = x.shape
+        self.entry = self.cache.get(self._key(x), x.device, K * N,
+                                    lambda: self._build(state))
+        if self.entry is None:
+            return pt_mh_step(state, z, u, self.space, loglik_batch, self.cfg,
+                              state.betas)
+        bufs, proposal = self.entry.held, self.entry.outputs[0]
+        bufs.load(state, z, u)
+        self.entry.replay(0)
+        bufs.lp.copy_(loglik_batch(proposal.reshape(K * N, d)).reshape(K, N))
+        self.entry.replay(1)
+        return bufs.result(state, 1)
+
+    def swap(self, state: PTState, u_swap: torch.Tensor,
+             parity: int) -> PTState:
+        """The sweep after :meth:`step`, graphed where that step was."""
+        if self.entry is None:
+            return pt_swap_step(state, u_swap, state.betas, parity,
+                                ema=self.cfg.ladder_ema)
+        bufs = self.entry.held
+        bufs.load_swap(state, u_swap, parity)
+        self.entry.replay(2)
+        return bufs.result(state, 0)
+
+    @staticmethod
+    def _key(x: torch.Tensor):
+        """The cache's key of the positions ``x``: None (eager) on the
+        host."""
+        return (x.device, x.dtype) + tuple(x.shape[:2]) if x.is_cuda else None
+
+    def _build(self, state: PTState):
+        bufs = _StepBuffers(state, self.space, self.cfg)
+        return bufs, (bufs.propose, bufs.accept, lambda _: bufs.swap())
+
+    def release(self, state: PTState) -> PTState:
+        """``state`` with copies of the buffers it holds."""
+        held = {id(getattr(g.held.state, f))
+                for g in self.cache.entries.values() for f in _BUFFERED}
+        return state._replace(**{f: getattr(state, f).clone()
+                                 for f in _BUFFERED
+                                 if id(getattr(state, f)) in held})
+
+
 def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
                    loglik_batch: Callable, mesh=LOCAL, *,
                    progress_fn: Optional[Callable] = None) -> Callable:
@@ -331,18 +519,28 @@ def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
     rung's chains, is called after each block: the only host reads of the
     run.
 
+    Single-rank steps and sweeps on the card replay as CUDA graphs
+    (:class:`_StepGraphs`) from the third step at a ``(K, N)`` on; the
+    samples and the final state a run returns are copies of the graphs'
+    buffers. A mesh of more than one rank steps eagerly, as host tensors
+    do.
+
     The tracer's spans of a run: ``pt.draws`` (a step's ``draws.step``, and
-    ``draws.swap`` on a sweep), ``pt.step`` (:func:`pt_mh_step`, holding
-    the objective's own spans), ``pt.swap`` (:func:`pt_swap_step`),
-    ``pt.adapt_ladder``, ``pt.adapt_cov`` and ``pt.finish`` (the stack,
-    the MAP and the gathers at the end); the counter ``pt.sweeps`` counts
-    the swap sweeps by ``(pair parity, K, N)``."""
+    ``draws.swap`` on a sweep), ``pt.step`` (:func:`pt_mh_step` or its
+    replay, holding the objective's own spans), ``pt.swap``
+    (:func:`pt_swap_step` or its replay), ``pt.adapt_ladder``,
+    ``pt.adapt_cov`` and ``pt.finish`` (the stack, the MAP and the gathers
+    at the end); the counter ``pt.sweeps`` counts the swap sweeps by
+    ``(pair parity, K, N)``."""
     if cfg.iterations <= 0:
         raise ValueError(f"iterations must be positive, got {cfg.iterations}")
     thin = max(1, cfg.thinning)
     n_blocks = -(-cfg.iterations // thin)
     adapt_every_blocks = max(1, cfg.adaptation_period // thin)
     swap_every = max(1, cfg.swap_every)
+    graphs = _StepGraphs(space, cfg) if mesh.world_size == 1 else None
+    # the step graphs' buffers change at the next step: keep copies
+    keep = (lambda t: t) if graphs is None else torch.clone
 
     def run(state0: PTState, draws) -> PTResult:
         state = state0
@@ -353,19 +551,25 @@ def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
                 i = block * thin + t
                 with span("pt.draws"):
                     z, u = draws.step(i)
+                z, u = z.reshape(K, N, d), u.reshape(K, N)
                 with span("pt.step"):
-                    state = pt_mh_step(state, z.reshape(K, N, d),
-                                       u.reshape(K, N), space, loglik_batch,
-                                       cfg, state.betas)
+                    if graphs is not None:
+                        state = graphs.step(state, z, u, loglik_batch)
+                    else:
+                        state = pt_mh_step(state, z, u, space, loglik_batch,
+                                           cfg, state.betas)
                 if state.step % swap_every == 0:
                     # pair parity alternates between swap sweeps
                     parity = (state.step // swap_every) % 2
                     with span("pt.draws"):
                         u_swap = draws.swap(i, (K - 1, N))
                     with span("pt.swap"):
-                        state = pt_swap_step(state, u_swap, state.betas,
-                                             parity, ema=cfg.ladder_ema,
-                                             mesh=mesh)
+                        if graphs is not None:
+                            state = graphs.swap(state, u_swap, parity)
+                        else:
+                            state = pt_swap_step(state, u_swap, state.betas,
+                                                 parity, ema=cfg.ladder_ema,
+                                                 mesh=mesh)
                     count("pt.sweeps", (parity, K, N))
                     if cfg.adapt_ladder and state.step <= cfg.burn_in:
                         with span("pt.adapt_ladder"):
@@ -384,9 +588,11 @@ def make_pt_runner(space: ParameterSpace, cfg: PTConfig,
                                             / max(state.step, 1))),
                             float(mesh.pmax(torch.max(state.best_logp))),
                             float(mesh.mean(torch.exp(state.log_scale))))
-            samples.append(state.x[0])
-            logps.append(state.logp[0])
+            samples.append(keep(state.x[0]))
+            logps.append(keep(state.logp[0]))
         with span("pt.finish"):
+            if graphs is not None:
+                state = graphs.release(state)
             # the first maximum in the unsharded (K, n_total) rung-major order
             n_total = N * mesh.world_size
             ids = (torch.arange(K, device=state.x.device)[:, None] * n_total

@@ -2,9 +2,10 @@
 on the host: CUDA's graph calls stand in as fakes that record what they
 are asked, so that the cache's policy (eager calls before the capture,
 least-recently-used eviction, the counters a capture takes back and each
-replay adds again) runs without a card. Its two users on the card (the
-objective's value call, the AM step) are in ``test_torch_value_graph.py``
-and ``test_torch_step_graph.py``.
+replay adds again) runs without a card. Its three users on the card (the
+objective's value call, the AM step, the PT step and sweep) are in
+``test_torch_value_graph.py``, ``test_torch_step_graph.py`` and
+``test_torch_pt_campaign.py``.
 """
 
 import contextlib

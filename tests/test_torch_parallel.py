@@ -14,6 +14,7 @@ several. Ranks are ``gloo`` processes spawned on the host
   tables: AM and DE-MC on the Gaussian target, and AM on the shortened
   Spain objective of ``tests/test_parallel.py:159-204``.
 - The mesh helpers on one process.
+- PT on a mesh of two ranks steps eagerly, past the step graphs.
 """
 
 import os
@@ -63,6 +64,7 @@ TWO_RANK_TASKS = {
     "pt_8d": (R.task_pt, dict(d=8, n_chains=8, iterations=30, n_rungs=2,
                               seed=31)),
     "fields": (R.task_fields, {}),
+    "pt_graph": (R.task_pt_graph, {}),
 }
 
 
@@ -118,6 +120,17 @@ def test_progress_numbers_are_reduced_over_ranks(two_ranks, name):
     for got in (r["progress"] for r in sharded[name]):
         close(got[:, [0, 2, 3]], want[:, [0, 2, 3]], 1e-12, 0.0, name)
         close(got[:, 1], want[:, 1], acc_rtol, 0.0, f"{name} acceptance")
+
+
+def test_pt_steps_on_a_mesh_stay_eager(two_ranks):
+    """On a mesh of two ranks PT steps eagerly without the step graphs
+    (``tempering._StepGraphs``), as AM's sharded step does: ``pt.graph``
+    counts nothing there, while the unsharded run on the host goes through
+    them and counts every step eager."""
+    sharded, ref = two_ranks
+    for r in sharded["pt_graph"]:
+        assert r["graph"] == {}
+    assert ref["pt_graph"]["graph"] == {("eager", 64): 8}
 
 
 def test_mh_sharded_resume(two_ranks):

@@ -7,27 +7,42 @@ Host tests: ``make_pt_runner`` equals the reference on explicit draws on
 the Spain-2020 space in float64 (both swap parities, the ladder moving in
 burn-in, the covariances every block) at 1e-12; a campaign killed after one
 of two segments and resumed equals the uninterrupted one to the bit; the
-tracer's ``pt.*`` spans and the ``pt.sweeps`` counter. Card test (marked
+tracer's ``pt.*`` spans and the ``pt.sweeps`` counter. The step graphs
+(``tempering._StepGraphs``): the step split in three parts (propose,
+accept, swap) and the parts on the graphs' fixed buffers equal the step
+and the sweep as they were written before the split, bit for bit; the
+graphed runner, its graphs stood in for by recordings of the operations
+their callables ran, equals the runner forced eager bit for bit through a
+killed and resumed campaign; host steps stay eager. Card tests (marked
 ``cuda``): at the benchmark cell's 8 x 1024 in float64, 20 steps of the
 runner on K1 against the reference on the plain Spain objective with the
-same draws. This file imports nothing of JAX, so the card can run it:
+same draws; at 8 x 1024 cash_karp@3 in float32, a campaign of two segments
+of 1000 steps graphed equals it forced eager, and resumed, bit for bit.
+This file imports nothing of JAX, so the card can run it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_pt_campaign.py -m cuda
 """
 
+import contextlib
+import math
 import os
 import sys
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_flatten
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from mmidv1_tpu_torch.calibration import tempering
+from mmidv1_tpu_torch.calibration import mh, tempering
 from mmidv1_tpu_torch.calibration.calibrator import condition_covariance
 from mmidv1_tpu_torch.calibration.draws import SeededRunDraws
 from mmidv1_tpu_torch.calibration.param_space import REFLECT
+from mmidv1_tpu_torch.calibration.mh import safe_logp
 from mmidv1_tpu_torch.calibration.tempering import (PTConfig, init_pt_state,
                                                     make_pt_runner,
+                                                    pt_adapt_covariance,
+                                                    pt_adapt_ladder, run_pt,
                                                     run_pt_checkpointed)
 from mmidv1_tpu_torch.cli.common import load_spain_pipeline
 from mmidv1_tpu_torch.data import read_sepaihrd_parameters
@@ -147,13 +162,15 @@ def test_runner_equals_the_plain_reference(spain30):
 
 
 def _campaign(spain30, path, *, segments=2, kill_after=None, resume=False,
-              kept=None, progress_fn=None):
+              kept=None, progress_fn=None, swap_every=1, raw=None):
     """A checkpointed PT campaign on the host (4 rungs x 4 chains, segments
     of 8 steps, thinning 4, burn-in 6); ``kill_after`` stops it once that
-    many segments are on disk; ``kept`` collects each segment's result."""
+    many segments are on disk; ``kept`` collects each segment's samples,
+    ``raw`` each segment's result as handed over with copies of it."""
     space, theta0, cov0, ll = spain30
     cfg = PTConfig(iterations=8 * segments, burn_in=6, adaptation_period=4,
-                   thinning=4, n_rungs=4, beta_min=0.05, ladder_t0=5.0)
+                   thinning=4, n_rungs=4, beta_min=0.05, ladder_t0=5.0,
+                   swap_every=swap_every)
 
     class Killed(Exception):
         pass
@@ -166,6 +183,8 @@ def _campaign(spain30, path, *, segments=2, kill_after=None, resume=False,
     def on_segment(s, r):
         if kept is not None:
             kept.append((s, r.samples.clone(), r.sample_logps.clone()))
+        if raw is not None:
+            raw.append((r, _copies(r)))
 
     try:
         return run_pt_checkpointed(ll, space, theta0, cfg, seed=5, n_chains=4,
@@ -242,6 +261,334 @@ def test_spans_and_sweeps_of_a_segment(spain30, tmp_path):
     assert torch.equal(on.samples, off.samples)
 
 
+# ------------------------------------------------------------ step graphs
+
+STATE_FIELDS = ("x", "logp", "log_scale", "chol", "cov", "best_x",
+                "best_logp", "accept_count", "swap_accept", "swap_tries",
+                "betas", "ladder_s", "swap_prob")
+RESULT_FIELDS = ("samples", "sample_logps", "best_x", "best_logp",
+                 "acceptance_rate", "swap_rate")
+
+
+def bits(t):
+    return t.view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+def assert_bit_equal(a, b, what=""):
+    assert a.shape == b.shape and a.dtype == b.dtype, what
+    if a.is_floating_point():
+        a, b = bits(a), bits(b)
+    assert torch.equal(a, b), what
+
+
+def assert_same_state(a, b):
+    for f in STATE_FIELDS:
+        assert_bit_equal(getattr(a, f), getattr(b, f), f)
+    assert a.step == b.step
+
+
+def _copies(result):
+    """Copies of every tensor of a :class:`PTResult` and its state."""
+    st = result.final_state
+    return ({f: getattr(st, f).clone() for f in STATE_FIELDS},
+            {f: getattr(result, f).clone() for f in RESULT_FIELDS})
+
+
+def legacy_pt_mh_step(state, z, u, space, loglik_batch, cfg, betas):
+    """The tempered step as :func:`tempering.pt_mh_step` was written before
+    its split into ``pt_propose`` and ``pt_accept``."""
+    K, N, d = state.x.shape
+    dtype = state.x.dtype
+    scale = torch.exp(state.log_scale)[..., None]
+    corr = torch.einsum("knd,ked->kne", z, state.chol)
+    proposal = space.reflect(state.x + scale * corr)
+
+    logp_prop = safe_logp(loglik_batch(proposal.reshape(K * N, d))) \
+        .reshape(K, N)
+    log_ratio = betas[:, None] * (logp_prop - state.logp)
+    accept = (log_ratio >= 0) | (torch.log(torch.clamp_min(u, 1e-12))
+                                 < log_ratio)
+
+    x = torch.where(accept[..., None], proposal, state.x)
+    logp = torch.where(accept, logp_prop, state.logp)
+
+    better = logp > state.best_logp
+    best_x = torch.where(better[..., None], x, state.best_x)
+    best_logp = torch.where(better, logp, state.best_logp)
+
+    step = state.step + 1
+    if cfg.adapt_scale:
+        gamma = min(1.0 / np.sqrt(step + 1.0), 0.1)
+        log_scale = torch.clamp(state.log_scale + gamma * (
+            accept.to(dtype) - cfg.target_acceptance_rate), -6.9, 2.3)
+    else:
+        log_scale = state.log_scale
+
+    return state._replace(
+        x=x, logp=logp, log_scale=log_scale, best_x=best_x,
+        best_logp=best_logp,
+        accept_count=state.accept_count + accept.to(torch.int32), step=step)
+
+
+def legacy_pt_swap_step(state, u, betas, parity, ema=0.1):
+    """The swap sweep as :func:`tempering.pt_swap_step` was written before
+    it took its pair mask as a tensor (one rank)."""
+    K, N, _d = state.x.shape
+    dev = state.x.device
+    dlogp = state.logp[1:] - state.logp[:-1]
+    dbeta = (betas[:-1] - betas[1:])[:, None]
+    log_alpha = dbeta * dlogp
+    pair_on = (torch.arange(K - 1, device=dev) % 2) == (parity % 2)
+    accept = ((log_alpha >= 0) | (torch.log(torch.clamp_min(u, 1e-12))
+                                  < log_alpha)) & pair_on[:, None]
+
+    p_pair = torch.sum(torch.exp(torch.clamp_max(log_alpha, 0.0)), dim=1) / N
+    swap_prob = torch.where(pair_on,
+                            (1.0 - ema) * state.swap_prob + ema * p_pair,
+                            state.swap_prob)
+
+    pad = torch.zeros((1, N), dtype=torch.bool, device=dev)
+    take_upper = torch.cat([accept, pad], dim=0)
+    take_lower = torch.cat([pad, accept], dim=0)
+
+    def exchange(a):
+        down = torch.cat([a[1:], a[-1:]], dim=0)
+        up = torch.cat([a[:1], a[:-1]], dim=0)
+        tail = (1,) * (a.dim() - 2)
+        m_up = take_upper.reshape(take_upper.shape + tail)
+        m_lo = take_lower.reshape(take_lower.shape + tail)
+        return torch.where(m_up, down, torch.where(m_lo, up, a))
+
+    return state._replace(
+        x=exchange(state.x), logp=exchange(state.logp),
+        swap_accept=state.swap_accept + accept.sum(dim=1).to(torch.int32),
+        swap_tries=state.swap_tries + (pair_on * N).to(torch.int32),
+        swap_prob=swap_prob)
+
+
+def _spain_host(dtype, K, N):
+    """The Spain-2020 space (20 days, rk4@1, REFLECT) on the host,
+    ``objective(k)``: its objective with one value overridden at step ``k``
+    (row 1 NaN, row 2 -inf, row 3 +inf, row 4 the floor, in turn), and a
+    start of ``K`` rungs of ``N`` chains with wide scales, so that
+    proposals leave the bounds, at a step past the gain's cap of 0.1."""
+    pipe = load_spain_pipeline(REPO, dtype=dtype, device="cpu", num_days=20)
+    space = pipe.space
+    ll = build_objective_fused(space, pipe.params, pipe.data, pipe.ts,
+                               substeps=1, tableau="rk4",
+                               constraint_mode=REFLECT, dtype=dtype,
+                               device="cpu")
+
+    def objective(k):
+        def f(x):
+            v = ll(x).clone()
+            v[1 + k % 4] = (float("nan"), -math.inf, math.inf,
+                            torch.finfo(dtype).min)[k % 4]
+            return v
+        return f
+
+    g = torch.Generator().manual_seed(17)
+    theta0 = space.extract(pipe.params).to(dtype)
+    state = init_pt_state(space, theta0, ll,
+                          torch.randn(K * N, space.dim, generator=g,
+                                      dtype=dtype),
+                          n_rungs=K, n_chains=N, jitter=0.5)
+    scales = torch.linspace(-1.0, 2.3, K * N, dtype=dtype).reshape(K, N)
+    return space, objective, state._replace(log_scale=scales, step=4321), g
+
+
+@pytest.mark.parametrize("adapt_scale", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_step_and_its_buffers_equal_the_legacy_step(dtype, adapt_scale):
+    """Eight steps, each with a swap sweep (both parities in turn), three
+    ways from one start of 4 rungs x 4 chains and one set of draws, the
+    ladder moved after the third and the covariances re-estimated after the
+    fifth: the step and sweep as they were written, :func:`pt_mh_step` and
+    :func:`pt_swap_step` (the parts composed, the gain a Python float, the
+    pair mask from the parity), and the step graphs' bodies on their fixed
+    buffers (the gain a 0-dim tensor, the mask copied in, the new state
+    written into the buffers). Every field is bit-equal after every step
+    and every sweep; some raw proposals lay outside the bounds, some values
+    were NaN, infinite or floored, and swaps were made."""
+    K, N, steps = 4, 4, 8
+    cfg = PTConfig(adapt_scale=adapt_scale, n_rungs=K, ladder_t0=5.0)
+    space, objective, start, g = _spain_host(dtype, K, N)
+    d = space.dim
+    draws = [(torch.randn(K, N, d, generator=g, dtype=dtype),
+              torch.rand(K, N, generator=g, dtype=dtype),
+              torch.rand(K - 1, N, generator=g, dtype=dtype))
+             for _ in range(steps)]
+    legacy = split = held = start
+    bufs = tempering._StepBuffers(start, space, cfg)
+    outside = 0
+    for i, (z, u, u_swap) in enumerate(draws):
+        raw = legacy.x + torch.exp(legacy.log_scale)[..., None] * torch.einsum(
+            "knd,ked->kne", z, legacy.chol)
+        outside += int((~space.in_bounds(raw)).sum())
+        legacy = legacy_pt_mh_step(legacy, z, u, space, objective(i), cfg,
+                                   legacy.betas)
+        split = tempering.pt_mh_step(split, z, u, space, objective(i), cfg,
+                                     split.betas)
+        bufs.load(held, z, u)
+        proposal = bufs.propose()
+        bufs.lp.copy_(objective(i)(proposal.reshape(K * N, d))
+                      .reshape(K, N))
+        bufs.accept(proposal)
+        held = bufs.result(held, 1)
+        for f in tempering._BUFFERED:
+            assert getattr(held, f) is getattr(bufs.state, f), f
+        assert_same_state(split, legacy)
+        assert_same_state(held, legacy)
+
+        parity = i % 2
+        legacy = legacy_pt_swap_step(legacy, u_swap, legacy.betas, parity)
+        split = tempering.pt_swap_step(split, u_swap, split.betas, parity)
+        bufs.load_swap(held, u_swap, parity)
+        bufs.swap()
+        held = bufs.result(held, 0)
+        assert_same_state(split, legacy)
+        assert_same_state(held, legacy)
+        if i == 2:
+            legacy, split, held = (pt_adapt_ladder(st, cfg)
+                                   for st in (legacy, split, held))
+            assert held.betas is not bufs.state.betas
+        if i == 4:
+            legacy, split, held = (pt_adapt_covariance(st, cfg)
+                                   for st in (legacy, split, held))
+            assert held.chol is not bufs.state.chol
+    assert outside > 0
+    assert bool(torch.isfinite(legacy.logp).all())
+    assert 0 < int(legacy.accept_count.sum()) < K * N * steps
+    assert int(legacy.swap_accept.sum()) > 0
+    assert not torch.equal(legacy.betas, start.betas)
+
+
+class RecordedGraph:
+    """A stand-in for a CUDA graph: the operations its capture ran, each
+    with the tensors it read and wrote; a replay runs them again on those
+    same tensors, as a graph replays its kernels on fixed addresses."""
+
+    def __init__(self):
+        self.ops = []
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        for func, args, kwargs, out in self.ops:
+            new = func(*args, **kwargs)
+            for o, n in zip(tree_flatten(out)[0], tree_flatten(new)[0]):
+                if isinstance(o, torch.Tensor) and \
+                        o.untyped_storage().data_ptr() != \
+                        n.untyped_storage().data_ptr():
+                    o.copy_(n)
+
+
+class _Record(TorchDispatchMode):
+    def __init__(self, graph):
+        super().__init__()
+        self.graph = graph
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        # a read of a value to the host cannot be captured
+        assert func is not torch.ops.aten._local_scalar_dense.default, func
+        out = func(*args, **kwargs)
+        self.graph.ops.append((func, args, kwargs, out))
+        return out
+
+
+@pytest.fixture
+def recorded_graphs(monkeypatch):
+    """CUDA's graph calls stood in for by :class:`RecordedGraph`, and the
+    step graphs keyed on host tensors as on the card's; yields the graphs
+    captured."""
+    made = []
+
+    def new_graph():
+        made.append(RecordedGraph())
+        return made[-1]
+
+    @contextlib.contextmanager
+    def graph(g, pool=None):
+        with _Record(g):
+            yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", new_graph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tempering._StepGraphs, "_key", staticmethod(
+        lambda x: (x.device, x.dtype) + tuple(x.shape[:2])))
+    yield made
+
+
+@pytest.mark.parametrize("swap_every", [1, 2])
+def test_graphed_campaign_equals_eager_on_recorded_graphs(
+        spain30, tmp_path, monkeypatch, recorded_graphs, swap_every):
+    """The host campaign (4 x 4, two segments of 8 steps) through the step
+    graphs, each graph a recording of the operations its callable ran:
+    two eager steps, one capture of three graphs (propose, accept, swap),
+    replays after, across the segment boundary; forced eager, the same
+    bits in every field of the result and the state; killed after segment
+    0 and resumed (its graphs captured anew), the same bits again; segment
+    0's result, kept while segment 1 ran on the same graphs, unchanged.
+    The swap graph replays on sweeps alone."""
+    steps = 16
+    raw = []
+    graphed = _campaign(spain30, tmp_path / "full.npz", raw=raw,
+                        swap_every=swap_every)
+    assert trace.counts("pt.graph") == {
+        ("eager", 16): mh.EAGER_STEPS, ("capture", 16): 1,
+        ("replay", 16): steps - mh.EAGER_STEPS - 1}
+    propose, accept, swap = recorded_graphs
+    assert propose.replays == accept.replays == steps - mh.EAGER_STEPS
+    sweeps = steps // swap_every
+    assert swap.replays == sweeps - mh.EAGER_STEPS // swap_every
+    assert trace.counts("pt.sweeps") == {(0, 4, 4): sweeps // 2,
+                                         (1, 4, 4): sweeps // 2}
+
+    trace.reset()
+    with monkeypatch.context() as m:
+        m.setattr(mh, "EAGER_STEPS", 10 ** 9)
+        eager = _campaign(spain30, tmp_path / "eager.npz",
+                          swap_every=swap_every)
+    assert trace.counts("pt.graph") == {("eager", 16): steps}
+    for f in RESULT_FIELDS:
+        assert_bit_equal(getattr(graphed, f), getattr(eager, f), f)
+    assert_same_state(graphed.final_state, eager.final_state)
+    assert int(graphed.final_state.swap_accept.sum()) > 0
+
+    path = tmp_path / "killed.npz"
+    assert _campaign(spain30, path, kill_after=1,
+                     swap_every=swap_every) is None
+    resumed = _campaign(spain30, path, resume=True, swap_every=swap_every)
+    assert_bit_equal(resumed.samples, graphed.samples[2:])
+    assert_bit_equal(resumed.sample_logps, graphed.sample_logps[2:])
+    assert_same_state(resumed.final_state, graphed.final_state)
+
+    (r0, (state0, result0)), _ = raw
+    for f, want in state0.items():
+        assert_bit_equal(getattr(r0.final_state, f), want, f)
+    for f, want in result0.items():
+        assert_bit_equal(getattr(r0, f), want, f)
+    assert not torch.equal(r0.final_state.x, graphed.final_state.x)
+
+
+def test_host_steps_stay_eager(spain30):
+    """On host tensors every step is eager, counted so, and no graph is
+    captured; a sweep follows its step's path."""
+    space, theta0, cov0, ll = spain30
+    cfg = PTConfig(iterations=6, burn_in=2, thinning=2, adaptation_period=2,
+                   n_rungs=3)
+    res = run_pt(ll, space, theta0, cfg, n_chains=4, jitter=0.1,
+                 draws=SeededRunDraws(5, 0, 12, space.dim, F64, "cpu"))
+    assert trace.counts("pt.graph") == {("eager", 12): 6}
+    assert trace.counts("pt.sweeps") == {(0, 3, 4): 3, (1, 3, 4): 3}
+    assert res.samples.shape == (3, 4, space.dim)
+    assert bool(torch.isfinite(res.sample_logps).all())
+
+
 # ----------------------------------------------------------------- the card
 
 
@@ -254,7 +601,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_runner_on_k1_follows_the_reference_on_the_card(cuda):
+def test_runner_on_k1_follows_the_reference_on_the_card(cuda, monkeypatch):
     """8 rungs x 1024 chains, float64, the full Spain-2020 window on
     cash_karp@3, 20 steps with a sweep each (the ladder and the covariances
     held, so the chain columns are independent): the runner on K1 against
@@ -273,6 +620,8 @@ def test_runner_on_k1_follows_the_reference_on_the_card(cuda):
 
     mine = []
     step_fn, swap_fn = tempering.pt_mh_step, tempering.pt_swap_step
+    # the decisions are read off the eager step and sweep: no step replays
+    monkeypatch.setattr(mh, "EAGER_STEPS", 10 ** 9)
 
     def mh_step(state, *a, **k):
         new = step_fn(state, *a, **k)
@@ -316,3 +665,103 @@ def test_runner_on_k1_follows_the_reference_on_the_card(cuda):
     assert float(gap[same].max()) <= 1e-9
     assert int(differ.sum()) <= 5
     assert 0 < int(fs.swap_accept.sum())
+
+
+SEGMENT = 1000
+
+
+class _Stop(Exception):
+    pass
+
+
+def _card_campaign(cuda, swap_every, *, path=None, resume=False,
+                   stop_at=None, on_segment=None):
+    """A campaign of 2 segments of 1000 PT steps at the benchmark cell's
+    shape (8 rungs x 1024 chains, cash_karp@3 on K1, float32, thinning
+    500, burn-in 500); with ``stop_at`` it stops before that segment (after
+    the checkpoint of the one before). Returns the result (None where
+    stopped) and the objective's calls."""
+    K, N = 8, 1024
+    pipe = load_spain_pipeline(REPO, dtype=torch.float32, device=cuda)
+    ll = build_objective_fused(pipe.space, pipe.params, pipe.data, pipe.ts,
+                               substeps=3, tableau="cash_karp",
+                               constraint_mode=REFLECT, dtype=torch.float32,
+                               device=cuda)
+    calls = [0]
+
+    def objective(x):
+        calls[0] += 1
+        return ll(x)
+
+    def draws_for_segment(s):
+        if s == stop_at:
+            raise _Stop
+        return SeededRunDraws(3000000001, s, K * N, pipe.space.dim,
+                              torch.float32, cuda)
+
+    cfg = PTConfig(iterations=2 * SEGMENT, burn_in=500, adaptation_period=100,
+                   thinning=500, n_rungs=K, beta_min=0.05,
+                   swap_every=swap_every)
+    theta0 = pipe.space.extract(pipe.params).to(torch.float32)
+    try:
+        res = run_pt_checkpointed(objective, pipe.space, theta0, cfg,
+                                  n_chains=N, segments=2, checkpoint_path=path,
+                                  resume=resume, on_segment=on_segment,
+                                  draws_for_segment=draws_for_segment)
+    except _Stop:
+        res = None
+    torch.cuda.synchronize(cuda)
+    return res, calls[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swap_every", [1, 2])
+def test_graphed_campaign_equals_eager_on_the_card(cuda, monkeypatch, tmp_path,
+                                                   swap_every):
+    """Two segments of 1000 steps at 8 x 1024 cash_karp@3 float32 from one
+    seed: with the step graphs (eager twice, one capture, replays after)
+    and forced eager, the cold rung's samples and values, the MAP, the
+    acceptance and swap rates and every field of the final state are
+    bit-equal; the campaign resumed at segment 1 from the graphed run's
+    checkpoint equals the uninterrupted run's segment 1; the objective is
+    called once a step and once at the start; segment 0's result, kept
+    while segment 1 ran on the same graphs, is as it was handed over."""
+    steps = 2 * SEGMENT
+    raw = []
+    graphed, n = _card_campaign(
+        cuda, swap_every, path=str(tmp_path / "full.npz"),
+        on_segment=lambda s, r: raw.append((r, _copies(r))))
+    assert n == steps + 1
+    assert trace.counts("pt.graph") == {
+        ("eager", 8192): mh.EAGER_STEPS, ("capture", 8192): 1,
+        ("replay", 8192): steps - mh.EAGER_STEPS - 1}
+    assert graphed.final_state.step == steps
+
+    trace.reset()
+    with monkeypatch.context() as m:
+        m.setattr(mh, "EAGER_STEPS", 10 ** 9)
+        eager, n = _card_campaign(cuda, swap_every)
+    assert n == steps + 1
+    assert trace.counts("pt.graph") == {("eager", 8192): steps}
+    for f in RESULT_FIELDS:
+        assert_bit_equal(getattr(graphed, f), getattr(eager, f), f)
+    assert_same_state(graphed.final_state, eager.final_state)
+    fs = graphed.final_state
+    assert int(fs.accept_count.min()) > 0 and int(fs.swap_accept.min()) > 0
+
+    path = str(tmp_path / "killed.npz")
+    stopped, _ = _card_campaign(cuda, swap_every, path=path, stop_at=1)
+    assert stopped is None
+    resumed, n = _card_campaign(cuda, swap_every, path=path, resume=True)
+    assert n == SEGMENT
+    per = graphed.samples.shape[0] // 2
+    assert_bit_equal(resumed.samples, graphed.samples[per:])
+    assert_bit_equal(resumed.sample_logps, graphed.sample_logps[per:])
+    assert_same_state(resumed.final_state, graphed.final_state)
+
+    (r0, (state0, result0)), _ = raw
+    for f, want in state0.items():
+        assert_bit_equal(getattr(r0.final_state, f), want, f)
+    for f, want in result0.items():
+        assert_bit_equal(getattr(r0, f), want, f)
+    assert not torch.equal(r0.final_state.x, graphed.final_state.x)

@@ -221,6 +221,16 @@ def task_pt(mesh, d=3, n_chains=16, iterations=60, n_rungs=4, seed=9):
                      "acceptance_rate", "swap_rate"))
 
 
+def task_pt_graph(mesh):
+    """The counter ``pt.graph`` of a short PT run, as this process saw
+    it."""
+    from mmidv1_tpu_torch.utils import trace
+
+    trace.reset()
+    task_pt(mesh, iterations=8)
+    return dict(graph=trace.counts("pt.graph"))
+
+
 def task_nuts(mesh):
     from mmidv1_tpu_torch.calibration.nuts import NUTSConfig, run_nuts
     from mmidv1_tpu_torch.parallel import run_nuts_gspmd
