@@ -2,7 +2,10 @@
 in the traced window / the timed window's seconds an iteration). The busy
 time is the union of the device's operation intervals from the trace; the
 time an iteration is the untraced window's, since the profiler slows the
-host and would stretch the traced window's own."""
+host and would stretch the traced window's own.
+
+On several ranks it is rank 0's: local work over a local trace (rank 0's
+profile, and its own windows' iterations and seconds)."""
 
 
 def read(rec):

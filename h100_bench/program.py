@@ -21,17 +21,25 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 class Setup:
     """The Spain-2020 pipeline of a configuration on ``device``: data,
     parameters, space and grid, the committed MAP and the posterior
-    covariance, and the objectives of the configuration's solver."""
+    covariance, and the objectives of the configuration's solver.
+
+    ``device`` is this rank's card, and ``mesh`` this rank's
+    ``parallel.mesh.EnsembleMesh`` over every rank of the process group (a
+    mesh of one where there is none). A cell's ``chains`` is the global
+    count: a driver runs its rank's ``chains / mesh.world_size`` rows
+    through the program's sharded runners and returns those rows."""
 
     def __init__(self, config: dict, device: torch.device,
                  num_days: Optional[int] = None):
         from mmidv1_tpu_torch.cli.common import load_spain_pipeline
         from mmidv1_tpu_torch.data import read_sepaihrd_parameters
+        from mmidv1_tpu_torch.parallel import ensemble_mesh
 
         self.config = config
         self.root = os.path.join(HERE, config["data"])
         self.dtype = getattr(torch, config["dtype"])
         self.device = device
+        self.mesh = ensemble_mesh(device=device)
         self.tableau, self.substeps = config["tableau"], int(config["substeps"])
         # load_spain_pipeline reads <root>/data/{configuration,processed,
         # contacts.csv}, as the frozen tree is laid out

@@ -132,11 +132,25 @@ def k1_launches(snap) -> dict:
     return out
 
 
+def one_chip(workload: str, overrides: dict = None):
+    """Raises ``ValueError`` for a cell of more than one chip: this script
+    runs one process, and its window is not the ranks' (``run.py`` starts
+    one process a rank)."""
+    cell, _config, _days = run.cell_files(workload, overrides)
+    chips = int(cell.get("chips", 1))
+    if chips > 1:
+        raise ValueError(f"program_trace.py runs one process; {workload} asks "
+                         f"for {chips} chips, one process a rank: trace it with "
+                         f"run.py --trace 1")
+
+
 def execute(workload: str, seed: int, seconds: float, *, device: str = "cuda",
             overrides: dict = None) -> dict:
     """``run.execute(..., trace=True)`` with :class:`ProgramWindow` and
     :func:`summarize` in place of the harness's own, and the ``program``
-    entry. On the host the readers' values go under ``rehearsal``."""
+    entry. On the host the readers' values go under ``rehearsal``. A cell
+    of more than one chip is refused (:func:`one_chip`)."""
+    one_chip(workload, overrides)
     windows, summaries = [], []
 
     class Window(ProgramWindow):
@@ -185,6 +199,11 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     args = p.parse_args(argv)
+    try:
+        one_chip(args.workload)
+    except ValueError as e:
+        print(f"program_trace: {e}", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("program_trace: needs a CUDA card", file=sys.stderr)

@@ -53,7 +53,7 @@ def test_cell_file(cell):
     w = next(x for x in BENCH["workloads"] if x["name"] == cell)
     assert NAME.match(cell) and NAME.match(w["traffic"]) and NAME.match(w["config"])
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
-    assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200
+    assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
     with open(os.path.join(HERE, "cells", f"{cell}.json")) as f:
         body = json.load(f)
     assert (body["name"], body["config"], body["traffic"], body["why"]) == \
@@ -64,6 +64,13 @@ def test_cell_file(cell):
     reported = [m for m in METRICS if "workloads" not in m or cell in m["workloads"]]
     assert {"setup_s", "draws_per_s"} <= {m["name"] for m in reported}
     assert any(m in BENCH["per_layer"] for m in reported)
+
+
+def test_four_chip_cells():
+    """At most a quarter of the cells, rounded down, ask for four chips;
+    one always may."""
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4), four
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])

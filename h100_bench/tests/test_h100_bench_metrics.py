@@ -45,6 +45,7 @@ def _rec(**kw):
     trace = TraceSummary([("sepaihrd_forward_split_kernel<Dopri5, false>", 0, ns // 4),
                           ("elementwise_kernel", ns // 2, ns // 2 + ns // 20)],
                          [], (0, 3 * ns))
+    kw.setdefault("chips", 1)
     return run.Record(config=CONFIG, cuda=True, timed=timed, traced=traced,
                       trace=trace, **kw)
 
@@ -55,6 +56,17 @@ def test_mfu():
     assert _reader("mfu").read(rec) == pytest.approx(100 * ops / (2.0 * 67e12))
     rec.timed.calls = {}
     assert _reader("mfu").read(rec) is None
+
+
+def test_mfu_over_every_card():
+    """Four ranks' calls, summed, over four cards' peak; at one chip the
+    reading is the one-card formula to the bit."""
+    one = _rec()
+    assert _reader("mfu").read(one) == 100.0 * 1000 * roofline.call_cost(
+        "k1", CONFIG, 1024)["ops"] / (2.0 * roofline.PEAK_FLOPS["float32"])
+    four = _rec(chips=4)
+    four.timed.calls = {1024: 4000}          # each of 4 ranks made 1000 calls
+    assert _reader("mfu").read(four) == pytest.approx(_reader("mfu").read(one))
 
 
 def test_k1_roofline():

@@ -13,6 +13,15 @@ With ``trace`` the timed window is followed by a traced one of
 are timed in both (a ``perf_counter`` pair around each call), and
 ``record_function`` marks them in the profiled one only. On the host (the
 rehearsal) the traced window runs unprofiled: there is no device to trace.
+
+On a ``mesh`` of more than one rank (one process a rank, ``ranks.py``) the
+window spans every rank's work: each opening and closing synchronises the
+rank's card and then holds a barrier, so set-up ends when the slowest rank
+is ready; at each unit boundary of the timed window rank 0's clock decides
+whether it has closed, shared by one small ``all_reduce``, so that every
+rank leaves the runner at the same unit. The profiler runs on rank 0 only;
+every rank keeps its own spans and call counts. With one rank none of this
+runs.
 """
 
 from __future__ import annotations
@@ -53,10 +62,13 @@ class Phase:
 
 class Window:
     def __init__(self, *, seconds: float, trace: bool, trace_units: int,
-                 device: torch.device, t_process: float):
+                 device: torch.device, t_process: float, mesh=None):
         self.seconds, self.trace, self.trace_units = seconds, trace, trace_units
         self.device, self.t_process = device, t_process
         self.cuda = device.type == "cuda"
+        # the ranks this window spans (an EnsembleMesh), None for one rank
+        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.rank = 0 if self.mesh is None else self.mesh.rank
         self.timed = Phase("timed")
         self.traced: Optional[Phase] = Phase("traced") if trace else None
         self.phase: Optional[Phase] = None
@@ -71,6 +83,8 @@ class Window:
     def _sync(self):
         if self.cuda:
             torch.cuda.synchronize(self.device)
+        if self.mesh is not None:          # a barrier of every rank
+            self.mesh.psum(torch.ones(1, device=self.device)).item()
 
     def _open(self, phase: Phase):
         self._sync()
@@ -80,6 +94,16 @@ class Window:
     def _close(self, phase: Phase):
         self._sync()
         phase.t1 = time.perf_counter()
+
+    def _over(self, phase: Phase) -> bool:
+        """Whether the timed window has run ``seconds``: by this rank's
+        clock, or on a mesh by rank 0's, the same answer on every rank."""
+        over = time.perf_counter() - phase.t0 >= self.seconds
+        if self.mesh is None:
+            return over
+        flag = torch.tensor([1.0 if over and self.rank == 0 else 0.0],
+                            device=self.device)
+        return bool(self.mesh.psum(flag).item())
 
     def start(self):
         """Set-up ends: the timed window opens."""
@@ -93,7 +117,7 @@ class Window:
         ph.units += 1
         ph.iterations += iterations
         if ph is self.timed:
-            if time.perf_counter() - ph.t0 < self.seconds:
+            if not self._over(ph):
                 return False
             self._close(ph)
             if self.traced is None:
@@ -109,7 +133,7 @@ class Window:
 
     # -- tracing -----------------------------------------------------------
     def _start_trace(self):
-        if not self.cuda:
+        if not self.cuda or self.rank != 0:
             self._open(self.traced)
             return
         from torch.profiler import ProfilerActivity, profile, record_function
