@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -215,8 +214,7 @@ def mh_propose(state: MHState, z: torch.Tensor, space: ParameterSpace,
     """The part of :func:`mh_step` before the objective call: the reflected
     proposals ``(B, d)``, and for DE the mask of the chains that move (None
     for AM)."""
-    B, d = state.x.shape
-    dtype = state.x.dtype
+    B = state.x.shape[0]
     scale = torch.exp(state.log_scale)[:, None]
     active = None
     if cfg.proposal == "de":
@@ -231,18 +229,32 @@ def mh_propose(state: MHState, z: torch.Tensor, space: ParameterSpace,
         parity = state.step % 2
         ids = mesh.offset(n_total) + torch.arange(B, device=state.x.device)
         active = (ids % 2) == parity
-        jj = 2 * j.long() + (1 - parity)
-        kk = 2 * k.long() + (1 - parity)
-        gamma = torch.where(g_u < cfg.de_gamma1_prob, torch.ones_like(g_u),
-                            torch.full_like(g_u, 2.38 / math.sqrt(2 * d)))
-        x_all = mesh.all_gather(state.x)
-        diff = x_all[jj] - x_all[kk]
-        jit_e = cfg.de_noise * space.sigmas.to(dtype) * z
-        proposal = state.x + (scale * gamma[:, None]) * diff + jit_e
-        proposal = torch.where(active[:, None], proposal, state.x)
+        proposal = _de_move(state.x, scale, z, space, cfg, j, k, g_u, parity,
+                            active, mesh.all_gather(state.x))
     else:
         proposal = state.x + scale * (z @ state.chol.T)
     return space.reflect(proposal), active
+
+
+def _de_move(x: torch.Tensor, scale: torch.Tensor, z: torch.Tensor,
+             space: ParameterSpace, cfg: MHConfig, j: torch.Tensor,
+             k: torch.Tensor, g_u: torch.Tensor, parity, active: torch.Tensor,
+             x_all: torch.Tensor) -> torch.Tensor:
+    """DE-MC's proposals before the reflection: each active chain moves by
+    ``scale * gamma`` times the difference of its partners' rows of the
+    walker table ``x_all`` (every rank's chains, in rank order) plus the
+    jitter; a frozen chain keeps its row. ``parity`` is the step's, a
+    Python int or (in the step graphs) a 0-dim int64 tensor: the same
+    partner indices either way."""
+    d = x.shape[1]
+    jj = 2 * j.long() + (1 - parity)
+    kk = 2 * k.long() + (1 - parity)
+    gamma = torch.where(g_u < cfg.de_gamma1_prob, torch.ones_like(g_u),
+                        torch.full_like(g_u, 2.38 / math.sqrt(2 * d)))
+    diff = x_all[jj] - x_all[kk]
+    jit_e = cfg.de_noise * space.sigmas.to(x.dtype) * z
+    proposal = x + (scale * gamma[:, None]) * diff + jit_e
+    return torch.where(active[:, None], proposal, x)
 
 
 def rm_gain(step: int) -> float:
@@ -357,41 +369,102 @@ class _StepBuffers:
         return self.state._replace(cov=state.cov, step=state.step + 1)
 
 
-class _StepGraphs:
-    """The single-rank AM step (:func:`mh_step`) replayed as two CUDA graphs
-    a device, dtype and chain count around the objective call, which stays
-    a Python call (:class:`..utils.graphs.GraphCache`: :data:`EAGER_STEPS`
-    eager steps first, counter ``mh.graph``): ``before`` (:func:`mh_propose`)
-    writes the proposals, ``after`` (:func:`mh_accept`) the new state, into
-    fixed buffers (:class:`_StepBuffers`). A replayed step, the span
-    ``mh.replay``, copies in what the state holds outside the buffers, its
-    draws and its gain, replays ``before``, calls ``loglik_batch`` once on
-    the proposals (through whatever wraps it), copies the values in and
-    replays ``after``. The state returned holds the buffers, which the next
-    step overwrites: a caller copies what it keeps (:meth:`release`)."""
+class _DEStepBuffers(_StepBuffers):
+    """A DE-MC step's state, draws, gain and parity in fixed tensors, and on
+    a mesh of more than one process the walker table (every rank's
+    positions, in rank order) that :meth:`load` gathers into, outside any
+    graph; the parts of :func:`mh_step` on them."""
 
-    def __init__(self, space: ParameterSpace, cfg: MHConfig):
-        self.space, self.cfg = space, cfg
-        self.cache = GraphCache("mh.graph", EAGER_STEPS)
+    def __init__(self, state: MHState, space: ParameterSpace, cfg: MHConfig,
+                 mesh):
+        super().__init__(state, space, cfg)
+        B, d = state.x.shape
+        n_total = B * mesh.world_size
+        dev = state.x.device
+        self.mesh = mesh
+        self.j = torch.empty(B, dtype=torch.int64, device=dev)
+        self.k = torch.empty_like(self.j)
+        self.g_u = torch.empty_like(state.logp)
+        self.parity = torch.empty((), dtype=torch.int64, device=dev)
+        self.id_parity = (mesh.offset(n_total)
+                          + torch.arange(B, device=dev)) % 2
+        self.x_all = (state.x.new_empty((n_total, d)) if mesh.distributed
+                      else self.state.x)
+
+    def load(self, state: MHState, z: torch.Tensor, u: torch.Tensor,
+             j: torch.Tensor, k: torch.Tensor, g_u: torch.Tensor):
+        """What AM's :meth:`_StepBuffers.load` copies in, the partner draws
+        and the parity; then the walker table gathered."""
+        super().load(state, z, u)
+        self.j.copy_(j)
+        self.k.copy_(k)
+        self.g_u.copy_(g_u)
+        self.parity.fill_(state.step % 2)
+        if self.mesh.distributed:
+            self.mesh.all_gather(self.state.x, out=self.x_all)
+
+    def propose(self):
+        st = self.state
+        active = self.id_parity == self.parity
+        proposal = _de_move(st.x, torch.exp(st.log_scale)[:, None], self.z,
+                            self.space, self.cfg, self.j, self.k, self.g_u,
+                            self.parity, active, self.x_all)
+        return self.space.reflect(proposal), active
+
+    def accept(self, proposed):
+        proposal, active = proposed
+        mh_accept(self.state, proposal, self.lp, self.u, self.cfg,
+                  active=active, gamma=self.gamma, in_place=True)
+
+
+class _StepGraphs:
+    """The MH step (:func:`mh_step`) replayed as two CUDA graphs a device,
+    dtype and chain count around the objective call, which stays a Python
+    call (:class:`..utils.graphs.GraphCache`: :data:`EAGER_STEPS` eager
+    steps first, counter ``mh.graph``, by ``(kind, B, "de")`` for DE-MC):
+    ``before`` (:func:`mh_propose`) writes the proposals, ``after``
+    (:func:`mh_accept`) the new state, into fixed buffers
+    (:class:`_StepBuffers`, :class:`_DEStepBuffers`). A replayed step, the
+    span ``mh.replay``, copies in what the state holds outside the buffers,
+    its draws and its gain (for DE-MC its partner draws and parity too, and
+    on a mesh it gathers the walker table, the step's one collective,
+    outside every graph), replays ``before``, calls ``loglik_batch`` once
+    on the proposals (through whatever wraps it; a frozen DE chain's is its
+    position), copies the values in and replays ``after``. The state
+    returned holds the buffers, which the next step overwrites: a caller
+    copies what it keeps (:meth:`release`). AM steps on one rank; DE-MC on
+    one rank or on ``mesh``."""
+
+    def __init__(self, space: ParameterSpace, cfg: MHConfig, mesh=LOCAL):
+        self.space, self.cfg, self.mesh = space, cfg, mesh
+        self.de = cfg.proposal == "de"
+        self.cache = GraphCache("mh.graph", EAGER_STEPS,
+                                label="de" if self.de else None)
 
     def __call__(self, state: MHState, z: torch.Tensor, u: torch.Tensor,
-                 loglik_batch: Callable) -> MHState:
+                 loglik_batch: Callable, *partners: torch.Tensor) -> MHState:
+        """One step; ``partners`` are DE-MC's ``(j, k, g_u)``."""
         x = state.x
         B = int(x.shape[0])
         graphs = self.cache.get((x.device, x.dtype, B) if x.is_cuda else None,
                                 x.device, B, lambda: self._build(state))
         if graphs is None:
-            return mh_step(state, z, u, self.space, loglik_batch, self.cfg)
+            j, k, g_u = partners or (None, None, None)
+            return mh_step(state, z, u, self.space, loglik_batch, self.cfg,
+                           j=j, k=k, g_u=g_u, mesh=self.mesh)
         bufs, proposal = graphs.held, graphs.outputs[0]
+        if self.de:
+            proposal = proposal[0]          # (proposals, the moving chains)
         with span("mh.replay"):
-            bufs.load(state, z, u)
+            bufs.load(state, z, u, *partners)
             graphs.replay(0)
             bufs.lp.copy_(loglik_batch(proposal))
             graphs.replay(1)
         return bufs.result(state)
 
     def _build(self, state: MHState):
-        bufs = _StepBuffers(state, self.space, self.cfg)
+        bufs = (_DEStepBuffers(state, self.space, self.cfg, self.mesh)
+                if self.de else _StepBuffers(state, self.space, self.cfg))
         return bufs, (bufs.propose, bufs.accept)
 
     def release(self, state: MHState) -> MHState:
@@ -448,10 +521,10 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
     replays), ``mh.adapt_cov`` and ``mh.finish`` (the stack and gather at
     the end).
 
-    Single-rank AM steps on the card replay as CUDA graphs
-    (:class:`_StepGraphs`) from the third step at a chain count on; the
-    samples and the final state a run returns are copies of the graphs'
-    buffers. DE-MC and a mesh of more than one rank step eagerly.
+    Steps on the card replay as CUDA graphs (:class:`_StepGraphs`) from the
+    third step at a chain count on: single-rank AM's, and DE-MC's on one
+    rank or on a mesh (around the walker table's gather); the samples and the final state a run returns are copies of
+    the graphs' buffers. AM on a mesh of more than one rank steps eagerly.
 
     On a ``mesh`` the state is this rank's chains and ``draws`` gives its
     rows; the progress numbers are reduced over ranks (a collective: pass
@@ -468,7 +541,8 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
     adapt_every_blocks = max(1, cfg.adaptation_period // thin)
     report_every = max(1, cfg.report_interval)
     de = cfg.proposal == "de"
-    graphs = None if de or mesh.world_size > 1 else _StepGraphs(space, cfg)
+    graphs = (_StepGraphs(space, cfg, mesh)
+              if de or mesh.world_size == 1 else None)
     # the step graphs' buffers change at the next step: keep copies
     keep = (lambda t: t) if graphs is None else torch.clone
 
@@ -480,15 +554,13 @@ def make_mh_runner(space: ParameterSpace, cfg: MHConfig,
                 i = block * thin + t
                 with span("mh.draws"):
                     z, u = draws.step(i)
-                    j = k = g_u = None
-                    if de:
-                        j, k, g_u = draws.partners(i)
+                    partners = draws.partners(i) if de else ()
                 with span("mh.step"):
                     if graphs is not None:
-                        state = graphs(state, z, u, loglik_batch)
+                        state = graphs(state, z, u, loglik_batch, *partners)
                     else:
                         state = mh_step(state, z, u, space, loglik_batch, cfg,
-                                        j=j, k=k, g_u=g_u, mesh=mesh)
+                                        mesh=mesh)
             if not de and state.step > cfg.burn_in and \
                     (state.step // thin) % adapt_every_blocks == 0:
                 with span("mh.adapt_cov"):
@@ -583,6 +655,7 @@ def run_mh_checkpointed(
     progress_fn: Optional[Callable] = None,
     on_segment: Optional[Callable] = None,
     draws_for_segment: Optional[Callable] = None,
+    mesh=LOCAL,
 ) -> MHResult:
     """Production campaign driver: the run split into ``segments`` segments
     with a disk checkpoint after each (port of ``run_mh_checkpointed``).
@@ -605,6 +678,16 @@ def run_mh_checkpointed(
     The tracer's spans of a segment: ``campaign.segment`` (the segment
     program), ``campaign.to_host`` (the thinned samples' copy) and
     ``campaign.checkpoint`` (:func:`~..utils.checkpoint.save_mh_state`).
+
+    On a ``mesh`` of W > 1 processes (every rank calls this with the same
+    arguments) ``n_chains`` is the global count and each rank runs its rows
+    of it: its rows of every segment's draws (``draws_for_segment`` gives
+    the global ensemble's), of the start, and of the state. Each rank writes
+    and resumes its own shard of the checkpoint
+    (:func:`~..utils.checkpoint.shard_path`); a resume needs the shards of
+    the same W, and raises ``ValueError`` otherwise. The thinned samples
+    every rank returns are the global ensemble's, in rank order, as
+    :func:`~..parallel.run_mh_sharded` returns them.
     """
     if segments <= 0:
         raise ValueError("segments must be positive")
@@ -614,32 +697,38 @@ def run_mh_checkpointed(
     if draws_for_segment is None:
         draws_for_segment = lambda s: SeededRunDraws(seed, s, n_chains,
                                                      space.dim, dtype, dev)
+    mesh.n_local(n_chains)                  # raises on a remainder
 
     state = None
     start_segment = 0
-    if checkpoint_path and resume and os.path.exists(checkpoint_path):
-        from ..utils.checkpoint import load_mh_state
+    path = checkpoint_path
+    if checkpoint_path:
+        from ..utils.checkpoint import load_mh_shard, shard_path
 
-        state = load_mh_state(checkpoint_path, device=dev)
+        path = shard_path(checkpoint_path, mesh)
+        if resume:
+            state = load_mh_shard(checkpoint_path, mesh, n_chains, device=dev)
+    if state is not None:
         # each segment runs ceil(per_segment/thinning)*thinning steps: dividing
         # by per_segment would drift whenever thinning does not divide it
         thin = max(1, cfg.thinning)
         steps_per_segment = -(-per_segment // thin) * thin
         start_segment = state.step // steps_per_segment
         get_logger("mh").info(
-            f"resuming campaign from {checkpoint_path} at step {state.step} "
+            f"resuming campaign from {path} at step {state.step} "
             f"(segment {start_segment})")
 
     runner = make_mh_runner(space, seg_cfg, loglik_batch,
-                            progress_fn=progress_fn)
+                            progress_fn=progress_fn, mesh=mesh)
     all_samples, all_logps = [], []
     result = None
     for s in range(start_segment, segments):
-        draws = draws_for_segment(s)
+        draws = shard_draws(draws_for_segment(s), mesh, n_chains)
         if state is None:
             state = init_mh_state(space, theta0, loglik_batch, draws.init(),
                                   jitter=jitter, initial_cov=initial_cov,
-                                  reg_eps=seg_cfg.regularization_epsilon)
+                                  reg_eps=seg_cfg.regularization_epsilon,
+                                  offset=mesh.offset(n_chains))
         with span("campaign.segment"):
             result = runner(state, draws)
         state = result.final_state
@@ -652,7 +741,7 @@ def run_mh_checkpointed(
             from ..utils.checkpoint import save_mh_state
 
             with span("campaign.checkpoint"):
-                save_mh_state(checkpoint_path, state)
+                save_mh_state(path, state)
     if result is None:   # fully resumed campaign with nothing left to run
         raise ValueError(
             f"checkpoint already covers all {segments} segments "

@@ -23,6 +23,20 @@ Usage:
 
 ``--device cpu --num-days 30`` runs the plain versions on the host at a
 small size (checks).
+
+Started by a launcher, the AM or DE-MC campaign runs on every rank of its
+process group (``parallel.multihost.initialize``: ``nccl`` on cards, one
+rank a card, ``gloo`` with ``--device cpu``), each rank on its share of
+``--chains``:
+
+    torchrun --nproc-per-node 4 -m mmidv1_tpu_torch.cli.production_campaign \
+        --proposal de --chains 32768 --tableau cash_karp --substeps 3
+
+Each rank checkpoints its own shard
+(``campaign_checkpoint.rank<r>-of-<W>.npz``) and resumes from it on as many
+ranks; rank 0 alone writes the segment files, the trace, the report and the
+parameters, from the gathered samples.
+Replica exchange (``--rungs > 1``) runs on one process.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .common import REPO_ROOT
 
@@ -132,14 +147,26 @@ def run(argv=None) -> dict:
     from ..calibration.tempering import PTConfig, run_pt_checkpointed
     from ..data import read_sepaihrd_parameters, save_calibration_results
     from ..ops import build_objective_fused
-    from ..utils.checkpoint import write_posterior_trace
+    from ..parallel import ensemble_mesh, multihost
+    from ..parallel.mesh import LOCAL
+    from ..utils.checkpoint import (checkpoint_worlds,
+                                    write_posterior_trace)
     from ..utils.device import resolve_device
     from .common import load_spain_pipeline
 
+    launched = multihost.initialize(device=args.device)
+    if launched and args.rungs > 1:
+        raise SystemExit("--rungs > 1 runs on one process: parallel tempering "
+                         "on a mesh of ranks is not supported; start it "
+                         "without a launcher")
     dev = resolve_device(args.device)
+    mesh = ensemble_mesh(device=dev) if launched else LOCAL
+    primary = mesh.rank == 0
+    say = print if primary else (lambda *a, **k: None)
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"device: {dev.type} / {kind}")
+    say(f"device: {dev.type} / {kind}"
+        + (f", {mesh.world_size} ranks ({mesh.backend})" if launched else ""))
     pipe = load_spain_pipeline(REPO_ROOT, dtype=dtype, device=dev,
                                num_days=args.num_days)
     data, params, space, ts = pipe.data, pipe.params, pipe.space, pipe.ts
@@ -167,9 +194,9 @@ def run(argv=None) -> dict:
         cov = np.diag(std ** 2)
         cov[np.ix_(free, free)] = lap["cov_free"]
         initial_cov = condition_covariance(as_t(cov), space.sigmas)
-        print(f"Laplace warm start from {args.laplace}: MAP LL "
-              f"{float(lap['ll_map']):.8e}, {int(free.sum())}/{space.dim} "
-              f"free, std range {std.min():.2e}..{std.max():.2e}")
+        say(f"Laplace warm start from {args.laplace}: MAP LL "
+            f"{float(lap['ll_map']):.8e}, {int(free.sum())}/{space.dim} "
+            f"free, std range {std.min():.2e}..{std.max():.2e}")
     else:
         # warm proposal covariance from the committed posterior ensemble
         # (same conditioning as the phase-1 -> phase-2 transfer)
@@ -180,7 +207,7 @@ def run(argv=None) -> dict:
                 post = z["samples"].reshape(-1, space.dim)[-50000:]
             initial_cov = condition_covariance(as_t(np.cov(post.T)),
                                                space.sigmas)
-            print(f"warm covariance from {post_path} ({post.shape[0]} draws)")
+            say(f"warm covariance from {post_path} ({post.shape[0]} draws)")
 
     os.makedirs(args.out, exist_ok=True)
     t0 = time.perf_counter()
@@ -223,6 +250,7 @@ def run(argv=None) -> dict:
         samples = all_samples[n_burn_draws:]
         sample_logps = all_logps[n_burn_draws:]
         swap_rate = res.swap_rate.cpu().numpy()
+        best_x = res.final_state.best_x
         print(f"swap rates per rung pair: {np.round(swap_rate, 3)}")
         print(f"final (adapted) ladder: "
               f"{np.round(res.final_state.betas.cpu().numpy(), 4)}")
@@ -233,8 +261,11 @@ def run(argv=None) -> dict:
                        adaptation_period=100, thinning=args.thinning,
                        proposal=args.proposal)
         ckpt = os.path.join(args.out, "campaign_checkpoint.npz")
-        resumed = os.path.exists(ckpt)
-        if not resumed:
+        # a checkpoint of any number of processes makes the campaign not a
+        # fresh one: one of another number refuses to resume (ValueError)
+        # before anything in the directory is touched
+        resumed = bool(checkpoint_worlds(ckpt))
+        if not resumed and primary:
             # fresh campaign: segment files of an older run in the same
             # directory must not leak into this posterior
             for f in glob_mod.glob(os.path.join(args.out, "mh_segment_*.npz")):
@@ -243,7 +274,14 @@ def run(argv=None) -> dict:
             ll_batch, space, theta0, cfg, seed=args.seed,
             n_chains=args.chains, segments=args.segments,
             checkpoint_path=ckpt, initial_cov=initial_cov,
-            on_segment=lambda s, r: _save_segment(args.out, "mh", s, r))
+            on_segment=((lambda s, r: _save_segment(args.out, "mh", s, r))
+                        if primary else None),
+            mesh=mesh)
+        # every chain's MAP, in rank order (a collective)
+        best_x = mesh.all_gather(res.final_state.best_x)
+        if not primary:
+            dist.destroy_process_group()
+            return {}
         if resumed:
             samples, sample_logps = _segment_posterior(args.out, "mh",
                                                        args.segments)
@@ -290,7 +328,7 @@ def run(argv=None) -> dict:
                                  substeps=args.substeps, tableau=args.tableau,
                                  constraint_mode=REFLECT, dtype=torch.float64,
                                  device=dev)
-    cands = res.final_state.best_x.reshape(-1, space.dim).to(torch.float64)
+    cands = best_x.reshape(-1, space.dim).to(torch.float64)
     lls = ll64(cands).cpu().numpy()
     k = int(np.argmax(lls))
     print(f"float64 MAP over {len(lls)} chains: {float(lls[k]):.8e} "
@@ -319,6 +357,8 @@ def run(argv=None) -> dict:
             "device": f"{dev.type}/{kind}", "seed": args.seed}
     with open(prev_meta_path, "w") as f:
         json.dump(meta, f, indent=2)
+    if launched:
+        dist.destroy_process_group()
     return meta
 
 

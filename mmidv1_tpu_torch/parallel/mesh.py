@@ -15,21 +15,30 @@ mesh of one, whose
 collectives return their input, so one code path serves the sharded and the
 unsharded run.
 
-The collectives are built on ``dist.all_reduce`` alone: with ``broadcast``
-it is all the ``gloo`` backend takes with CUDA tensors (PyTorch's table of
-backends), and two ranks that share one card cannot use ``nccl``, which
-takes one rank a card. On an NVIDIA H100 with PyTorch 2.11.0 (CUDA 12.8),
-``gloo`` ran every reduction below on CUDA tensors of float64, float32 and
-int64, with SUM, MAX and MIN (``chip_smoke.py`` phase 22). So:
+On ``nccl`` (one rank a card) ``all_gather`` is
+``dist.all_gather_into_tensor``: every rank's rows copied in rank order into
+one buffer, which the caller may own (``out``), so that a CUDA graph can
+read it step after step. Every other collective, and every collective on
+other backends, is built on ``dist.all_reduce``: with ``broadcast`` it is
+all the ``gloo`` backend takes with CUDA tensors (PyTorch's table of
+backends), and two ranks that share one card cannot use ``nccl``. On an
+NVIDIA H100 with PyTorch 2.11.0 (CUDA 12.8), ``gloo`` ran every reduction
+below on CUDA tensors of float64, float32 and int64, with SUM, MAX and MIN
+(``chip_smoke.py`` phase 22). So:
 
-- ``all_gather`` is a zero-filled global buffer with this rank's rows written
-  in, summed by ``all_reduce``: exact, since ``x + 0 == x`` (a ``-0.0``
-  comes back as ``+0.0``);
+- ``all_gather`` off ``nccl`` is a zero-filled global buffer with this
+  rank's rows written in, summed by ``all_reduce``: exact, since ``x + 0 ==
+  x`` (a ``-0.0`` comes back as ``+0.0``);
 - the first maximum across ranks (``mmidv1_tpu/calibration/mh.py:333-342``)
   is an ``all_reduce(MAX)`` of the value, then an ``all_reduce(MIN)`` of the
   global index that reaches it, so ties resolve to the lowest global index,
   as ``argmax`` over the unsharded ensemble does; the winning row is then
   summed in from its owner.
+
+Each collective of a mesh of more than one process is a span of the
+port's tracer, ``mesh.all_gather`` or ``mesh.all_reduce`` (under ``psum``,
+``pmax``, ``pmin`` and ``mean``), and adds the bytes of its result to the
+counter ``mesh.bytes`` by ``(op, dtype, numel)``, spans on or off.
 
 The JAX module's ``batch_sharding`` / ``replicated_sharding`` build GSPMD
 placement objects; a rank here holds its rows as plain tensors, so they have
@@ -43,6 +52,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..utils.trace import count, span
 
 CHAINS_AXIS = "chains"
 
@@ -73,7 +84,9 @@ class EnsembleMesh:
         if not self.distributed:
             return t
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t, op=op)
+        with span("mesh.all_reduce"):
+            _count_bytes("all_reduce", t)
+            dist.all_reduce(t, op=op)
         return t
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
@@ -90,19 +103,35 @@ class EnsembleMesh:
         """Mean of every element of every rank's ``t`` (equal shapes)."""
         return self.psum(torch.sum(t)) / (t.numel() * self.world_size)
 
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, dim: int = 0,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order
-        (``lax.all_gather(..., tiled=True)``)."""
+        (``lax.all_gather(..., tiled=True)``), written into ``out`` where
+        given (contiguous, of the result's shape: a buffer the caller keeps)
+        and returned. On a mesh of one, ``t`` itself (copied into ``out``)."""
         if not self.distributed:
-            return t
+            return t if out is None else out.copy_(t)
         n = t.shape[dim]
         shape = list(t.shape)
         shape[dim] = n * self.world_size
-        buf = t.new_zeros(shape)
+        buf = t.new_empty(shape) if out is None else out
         if buf.numel() == 0:
             return buf
-        buf.narrow(dim, self.rank * n, n).copy_(t)
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        with span("mesh.all_gather"):
+            _count_bytes("all_gather", buf)
+            if self.backend != "nccl":
+                buf.zero_()
+                buf.narrow(dim, self.rank * n, n).copy_(t)
+                dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+            elif dim == 0:
+                dist.all_gather_into_tensor(buf, t.contiguous())
+            else:
+                # the collective stacks along dim 0: gather with ``dim``
+                # moved there, and move it back
+                rows = t.movedim(dim, 0).contiguous()
+                tmp = rows.new_empty((n * self.world_size,) + rows.shape[1:])
+                dist.all_gather_into_tensor(tmp, rows)
+                buf.copy_(tmp.movedim(0, dim))
         return buf
 
     def first_max(self, values: torch.Tensor, rows: torch.Tensor,
@@ -155,6 +184,11 @@ def ensemble_mesh(n_devices: Optional[int] = None, *,
             device = f"cuda:{torch.cuda.current_device()}"
     return EnsembleMesh(world_size=world, rank=rank,
                         device=resolve_device(device), backend=backend)
+
+
+def _count_bytes(op: str, result: torch.Tensor) -> None:
+    count("mesh.bytes", (op, str(result.dtype), result.numel()),
+          result.numel() * result.element_size())
 
 
 LOCAL = EnsembleMesh(world_size=1, rank=0, device=torch.device("cpu"))

@@ -11,11 +11,17 @@ The files are the JAX package's: the same field names, the same dtypes on
 disk (``int32`` for ``step`` / ``it`` and the counters), so a checkpoint
 written by one package loads in the other. Loaders return the port's types
 on ``device``, with ``step`` / ``it`` as Python ints.
+
+A campaign on a mesh of W > 1 processes checkpoints one shard a rank, each
+rank's rows of the state in a file of its own (:func:`shard_path`), written
+and read by that rank (:func:`load_mh_shard`).
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -78,6 +84,66 @@ def load_mh_state(path: str, device="cpu") -> MHState:
     """Load an MHState written by :func:`save_mh_state` (or by the JAX
     package) onto ``device``."""
     return _load_state_npz(path, MHState, device)
+
+
+def shard_path(path: str, mesh) -> str:
+    """This rank's file of the checkpoint ``path`` on ``mesh`` (an
+    :class:`~mmidv1_tpu_torch.parallel.mesh.EnsembleMesh`): ``path`` itself
+    on a mesh of one, else ``<root>.rank<r>-of-<W><ext>``."""
+    if mesh.world_size == 1:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{mesh.rank}-of-{mesh.world_size}{ext}"
+
+
+def checkpoint_worlds(path: str) -> set:
+    """The numbers of processes whose checkpoints of ``path`` are on disk
+    (1 for ``path`` itself, W for a shard ``<root>.rank<r>-of-<W><ext>``):
+    empty for a campaign that has none."""
+    root, ext = os.path.splitext(path)
+    worlds = {1} if os.path.exists(path) else set()
+    for f in glob.glob(glob.escape(root) + ".rank*-of-*" + glob.escape(ext)):
+        m = re.fullmatch(r"\.rank\d+-of-(\d+)", f[len(root):len(f) - len(ext)])
+        if m:
+            worlds.add(int(m.group(1)))
+    return worlds
+
+
+def load_mh_shard(path: str, mesh, n_chains: int,
+                  device="cpu") -> Optional[MHState]:
+    """This rank's :class:`MHState` of the campaign checkpoint ``path``
+    (its :func:`shard_path`), or None where no rank finds its shard and no
+    checkpoint of the campaign is on disk. On a mesh of more than one
+    process every rank calls this (its checks are collectives). Raises
+    ``ValueError`` where the checkpoint was written by another number of
+    processes, where only some ranks find their shard, where the shards
+    stand at different steps, or where the rows do not make ``n_chains``."""
+    own = shard_path(path, mesh)
+    world = mesh.world_size
+    have = os.path.exists(own)
+    if mesh.distributed:
+        found = int(mesh.psum(torch.tensor([int(have)], device=device)).item())
+    else:
+        found = int(have)
+    if found == 0:
+        others = checkpoint_worlds(path) - {world}
+        if others:
+            raise ValueError(
+                f"the checkpoint {path} was written by {sorted(others)} "
+                f"process(es); resume it on as many (this run has {world})")
+        return None
+    if found != world:
+        raise ValueError(f"{found} of {world} ranks find their shard of the "
+                         f"checkpoint {path}")
+    state = load_mh_state(own, device=device)
+    if state.x.shape[0] * world != n_chains:
+        raise ValueError(f"{own} holds {state.x.shape[0]} chains a rank; "
+                         f"{n_chains} over {world} rank(s) asked for")
+    if mesh.distributed:
+        step = torch.tensor([state.step], device=device)
+        if int(mesh.pmax(step).item()) != int(mesh.pmin(step).item()):
+            raise ValueError(f"the shards of {path} stand at different steps")
+    return state
 
 
 def save_pt_state(path: str, state) -> None:

@@ -47,14 +47,16 @@ class GraphCache:
     the least recently used key's graphs are dropped past it; that key
     recaptures when it comes back, with no eager call. The tracer's counter
     ``counter`` counts the calls by ``("eager" | "capture" | "replay",
-    B)``. Every counter a capture counts (the kernels' ``launches``) is
-    taken back and kept with its graph, which adds it again at each replay:
-    the counters read as if every call had run eagerly."""
+    B)``, or ``(..., B, label)`` for a cache with a ``label``. Every
+    counter a capture counts (the kernels' ``launches``) is taken back and
+    kept with its graph, which adds it again at each replay: the counters
+    read as if every call had run eagerly."""
 
     def __init__(self, counter: str, eager_calls: int,
-                 capacity: Optional[int] = None):
+                 capacity: Optional[int] = None, label: Optional[str] = None):
         self.counter, self.eager_calls = counter, eager_calls
         self.capacity = capacity
+        self.label = () if label is None else (label,)
         self.eager = {}                            # key -> eager calls made
         self.entries = collections.OrderedDict()   # key -> Graphs, LRU first
         self.pool = None
@@ -74,7 +76,7 @@ class GraphCache:
             if key is not None:
                 self.eager[key] = self.eager.get(key, 0) + 1
             kind = "eager"
-        trace.count(self.counter, (kind, B))
+        trace.count(self.counter, (kind, B) + self.label)
         return entry
 
     def _capture(self, key, device, held, fns) -> Graphs:

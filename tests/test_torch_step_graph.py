@@ -228,14 +228,14 @@ def _tiny_run(proposal):
 
 
 def test_host_and_de_steps_stay_eager():
-    """On the host every AM step is eager and counted so; DE-MC does not go
-    through the step graphs at all; both runs return their thinned
+    """On the host every AM step and every DE-MC step is eager and counted
+    so (DE-MC's under its own keys); both runs return their thinned
     samples."""
     am = _tiny_run("am")
     assert trace.counts("mh.graph") == {("eager", 8): 6}
     trace.reset()
     de = _tiny_run("de")
-    assert trace.counts("mh.graph") == {}
+    assert trace.counts("mh.graph") == {("eager", 8, "de"): 6}
     for res in (am, de):
         assert res.samples.shape == (3, 8, res.final_state.x.shape[1])
         assert bool(torch.isfinite(res.sample_logps).all())

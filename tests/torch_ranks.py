@@ -37,7 +37,8 @@ def spawn(world, tasks, workdir, timeout=45.0, init="gloo"):
     ranks; returns, for each rank, the list of ``fn(mesh, **kwargs)``
     results. ``init="multihost"`` starts the group with
     ``parallel.multihost.initialize`` instead, and each rank's list then
-    starts with what ``initialize`` returned."""
+    starts with what ``initialize`` returned; ``init="nccl"`` starts an
+    ``nccl`` group, rank ``r`` on card ``r``."""
     os.makedirs(workdir, exist_ok=True)
     store = os.path.join(workdir, f"store_{time.monotonic_ns()}")
     outs = [os.path.join(workdir, f"rank{r}_{os.path.basename(store)}.pkl")
@@ -86,7 +87,10 @@ def _rank_main(rank, world, store, tasks, out, init):
     status, payload = "error", "not started"
     try:
         timeout = datetime.timedelta(seconds=60)
-        head = []
+        head, device = [], "cpu"
+        if init == "nccl":
+            torch.cuda.set_device(rank)
+            device = f"cuda:{rank}"
         if init == "multihost":
             head = [multihost.initialize(
                 f"file://{store}", world, rank, backend="gloo", device="cpu",
@@ -95,7 +99,7 @@ def _rank_main(rank, world, store, tasks, out, init):
             dist.init_process_group(init, init_method=f"file://{store}",
                                     rank=rank, world_size=world,
                                     timeout=timeout)
-        mesh = ensemble_mesh(device="cpu")
+        mesh = ensemble_mesh(device=device)
         status, payload = "ok", head + [fn(mesh, **kw) for fn, kw in tasks]
     except BaseException:          # reported to the parent, which fails
         payload = traceback.format_exc()
@@ -372,3 +376,163 @@ def task_multihost(mesh):
     return dict(primary=multihost.is_primary(), rank=dist.get_rank(),
                 world=dist.get_world_size(), backend=dist.get_backend(),
                 mesh_world=mesh.world_size, best_logp=out["best_logp"])
+
+
+# ------------------------------------------ DE-MC's campaign on a mesh
+# (tests/test_torch_de_mesh.py)
+
+SPAIN_TREE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "h100_bench", "data", "spain2020")
+DE_CAMPAIGN = dict(seed=2 ** 33 + 25, n_chains=16, segments=2, steps=10,
+                   thinning=5, num_days=20)
+
+
+def spain_problem(num_days):
+    """The benchmark's frozen Spain-2020 tree: its space, the committed MAP
+    and K1's plain version (cash_karp@3, REFLECT) in float64 over
+    ``num_days`` days."""
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.data import read_sepaihrd_parameters
+    from mmidv1_tpu_torch.ops import build_objective_fused
+
+    pipe = load_spain_pipeline(SPAIN_TREE, dtype=F64, device="cpu",
+                               num_days=num_days)
+    init = read_sepaihrd_parameters(
+        os.path.join(SPAIN_TREE, "calibrated_parameters.txt"), 4,
+        N=pipe.data.population_by_age,
+        M_baseline=pipe.params.M_baseline.cpu().numpy(), dtype=F64,
+        device="cpu")
+    ll = build_objective_fused(pipe.space, pipe.params, pipe.data, pipe.ts,
+                               substeps=3, tableau="cash_karp",
+                               constraint_mode=REFLECT, dtype=F64,
+                               device="cpu")
+    return pipe.space, pipe.space.extract(init), ll
+
+
+def task_de_campaign(mesh, path, kill_after=None, resume=False):
+    """DE-MC through ``run_mh_checkpointed`` on ``mesh`` (one process for
+    None), checkpointing to ``path``, from the draws of ``DE_CAMPAIGN``'s
+    seed; ``kill_after`` stops it once that many segments are on disk. This
+    rank's final rows and every rank's samples; ``error`` holds the message
+    of a ``ValueError`` the driver raised."""
+    from mmidv1_tpu_torch.calibration.draws import SeededRunDraws
+    from mmidv1_tpu_torch.calibration.mh import MHConfig, run_mh_checkpointed
+    from mmidv1_tpu_torch.parallel.mesh import LOCAL
+
+    c = DE_CAMPAIGN
+    space, theta0, ll = spain_problem(c["num_days"])
+    cfg = MHConfig(iterations=c["steps"] * c["segments"], burn_in=0,
+                   thinning=c["thinning"], proposal="de")
+
+    class Killed(Exception):
+        pass
+
+    def draws_for_segment(s):
+        if s == kill_after:
+            raise Killed
+        return SeededRunDraws(c["seed"], s, c["n_chains"], space.dim, F64,
+                              "cpu")
+
+    try:
+        res = run_mh_checkpointed(
+            ll, space, theta0, cfg, seed=c["seed"], n_chains=c["n_chains"],
+            segments=c["segments"], checkpoint_path=path, resume=resume,
+            draws_for_segment=draws_for_segment,
+            mesh=LOCAL if mesh is None else mesh)
+    except Killed:
+        return dict(killed=True)
+    except ValueError as e:
+        return dict(error=str(e))
+    st = res.final_state
+    return dict(step=st.step, **{f: getattr(st, f).numpy() for f in (
+        "x", "logp", "log_scale", "accept_count")},
+        **_np(res, ("samples", "sample_logps")))
+
+
+def task_gather(mesh):
+    """``mesh.all_gather`` of rows that tell the rank they came from: along
+    dim 0, into a buffer of the caller's, and along dim 1; and the counter
+    ``mesh.bytes`` it left."""
+    from mmidv1_tpu_torch.utils import trace
+
+    trace.reset()
+    r, W, dev = mesh.rank, mesh.world_size, mesh.device
+    rows = torch.arange(6, dtype=F64, device=dev).reshape(3, 2) + 100 * r
+    wide = torch.arange(24, dtype=torch.float32,
+                        device=dev).reshape(2, 3, 4) + 1000 * r
+    out = torch.full((3 * W, 2), float("nan"), dtype=F64, device=dev)
+    into = mesh.all_gather(rows, out=out)
+    return dict(rows=mesh.all_gather(rows).cpu().numpy(),
+                into=into.cpu().numpy(), same=into is out,
+                wide=mesh.all_gather(wide, dim=1).cpu().numpy(),
+                bytes=trace.counts("mesh.bytes"))
+
+
+DE_CARD = dict(seed=3125000001, n_chains=2048, segments=2, steps=200,
+               thinning=100)
+
+
+def de_card_campaign(mesh, path=None, resume=False, keep=None):
+    """DE-MC through ``run_mh_checkpointed`` on ``mesh`` on this process's
+    card: ``DE_CARD``'s float32 chains of the frozen Spain-2020 tree (K1,
+    cash_karp@3, 306 days) from the committed MAP, two segments of 200
+    steps, checkpointing to ``path``; ``keep`` receives a copy of the
+    checkpoint segment 0 left."""
+    import shutil
+
+    from mmidv1_tpu_torch.calibration.draws import SeededRunDraws
+    from mmidv1_tpu_torch.calibration.mh import MHConfig, run_mh_checkpointed
+    from mmidv1_tpu_torch.calibration.param_space import REFLECT
+    from mmidv1_tpu_torch.cli.common import load_spain_pipeline
+    from mmidv1_tpu_torch.data import read_sepaihrd_parameters
+    from mmidv1_tpu_torch.ops import build_objective_fused
+
+    c = DE_CARD
+    dev, f32 = torch.device("cuda", torch.cuda.current_device()), torch.float32
+    pipe = load_spain_pipeline(SPAIN_TREE, dtype=f32, device=dev)
+    init = read_sepaihrd_parameters(
+        os.path.join(SPAIN_TREE, "calibrated_parameters.txt"), 4,
+        N=pipe.data.population_by_age,
+        M_baseline=pipe.params.M_baseline.cpu().numpy(), dtype=f32, device=dev)
+    ll = build_objective_fused(pipe.space, pipe.params, pipe.data, pipe.ts,
+                               substeps=3, tableau="cash_karp",
+                               constraint_mode=REFLECT, dtype=f32, device=dev)
+    cfg = MHConfig(iterations=c["steps"] * c["segments"], burn_in=0,
+                   thinning=c["thinning"], proposal="de")
+    space = pipe.space
+
+    def draws_for_segment(s):
+        if s == 1 and keep is not None:
+            shutil.copy(path, keep)
+        return SeededRunDraws(c["seed"], s, c["n_chains"], space.dim, f32, dev)
+
+    return run_mh_checkpointed(ll, space, space.extract(init), cfg,
+                               n_chains=c["n_chains"], segments=c["segments"],
+                               checkpoint_path=path, resume=resume,
+                               draws_for_segment=draws_for_segment, mesh=mesh)
+
+
+def task_de_card_campaign(mesh):
+    """:func:`de_card_campaign` on this rank's card: its final rows, every
+    rank's samples and the counter ``mh.graph``."""
+    from mmidv1_tpu_torch.utils import trace
+
+    trace.reset()
+    res = de_card_campaign(mesh)
+    st = res.final_state
+    return dict(step=st.step, graph=trace.counts("mh.graph"),
+                **{f: getattr(st, f).cpu().numpy() for f in DE_ROWS},
+                **_np(res, ("samples", "sample_logps")))
+
+
+DE_ROWS = ("x", "logp", "log_scale", "best_x", "best_logp", "accept_count")
+"""The fields of an ``MHState`` that hold a row a chain."""
+
+
+def task_campaign_cli(mesh, argv):
+    """``production_campaign`` as a launcher starts it on this rank: its
+    metadata on rank 0, nothing on the others."""
+    from mmidv1_tpu_torch.cli import production_campaign as pc
+
+    return pc.run(argv)
